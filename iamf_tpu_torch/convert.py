@@ -1,0 +1,90 @@
+"""State carried across from the JAX package: its stream parameters and
+carries, taken as numpy arrays, turned into this package's tensors on a
+given device, so both packages can start a batch from identical state.
+
+- ``stream_params``: the dict from iamf_tpu.core.pipeline.put_stream_params
+- ``pipe_carry``: iamf_tpu.core.pipeline.init_carry / decode_frames carry
+  (limiter state, ``splice``, ``pos``)
+- ``synth_carry``: iamf_tpu.codecs.opus.tpu_synth.SynthCarry
+- ``pipeline_config``: iamf_tpu.core.pipeline.PipelineConfig
+
+The JAX arrays are passed through ``np.asarray`` by the caller or here;
+this module imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .codecs.opus.synth import SynthCarry
+from .core.pipeline import ElementSpec, PipelineConfig
+from .dsp.demix import DemixSpec
+from .dsp.limiter import LimiterConfig
+
+
+def _t(a, device, dtype=None):
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+
+def pipeline_config(cfg) -> PipelineConfig:
+    """iamf_tpu.core.pipeline.PipelineConfig -> this package's (the two
+    sets of frozen dataclasses have the same fields)."""
+
+    def spec(es):
+        d = dict(vars(es))
+        if es.demix is not None:
+            d["demix"] = DemixSpec(**vars(es.demix))
+        return ElementSpec(**d)
+
+    d = dict(vars(cfg))
+    d["elements"] = tuple(spec(es) for es in cfg.elements)
+    if cfg.limiter is not None:
+        d["limiter"] = LimiterConfig(**vars(cfg.limiter))
+    return PipelineConfig(**d)
+
+
+def stream_params(params: dict, device) -> dict:
+    """put_stream_params pytree -> core/pipeline.stream_params layout.
+    Rows past the padded length are junk in both packages and never read."""
+    out = {k: [_t(a, device, np.float32) for a in params[k]]
+           for k in ("factors", "rg", "mats", "elem_gain")}
+    out["mat_idx"] = [_t(a, device, np.int64) for a in params["mat_idx"]]
+    out["out_gain"] = _t(params["out_gain"], device, np.float32)
+    return out
+
+
+def limiter_state(state: dict, device) -> dict:
+    """iamf_tpu.dsp.limiter state dict -> dsp/limiter.py state dict."""
+    if "tp_hist" in state:
+        raise NotImplementedError(
+            "true-peak limiter state (ROADMAP.md §1 item 9)")
+    env = [state[k] for k in ("current_gain", "target_start_gain",
+                              "target_end_gain", "current_tc")]
+    return {
+        "env": _t(np.array(env, np.float32), device),
+        "delay_data": _t(state["delay_data"], device, np.float32),
+        "peak_data": _t(state["peak_data"], device, np.float32),
+        "entry_index": _t(np.reshape(state["entry_index"], (1,)), device,
+                          np.int32),
+    }
+
+
+def pipe_carry(carry: dict, device) -> dict:
+    """Pipeline carry: pos becomes a host int, the rest tensors."""
+    out = {"pos": int(np.asarray(carry["pos"]))}
+    if "limiter" in carry:
+        out["limiter"] = limiter_state(carry["limiter"], device)
+    if "splice" in carry:
+        out["splice"] = _t(carry["splice"], device, np.float32)
+    if "hrtf" in carry:
+        raise NotImplementedError("binaural carry (ROADMAP.md §1 item 7)")
+    return out
+
+
+def synth_carry(carry, device) -> SynthCarry:
+    """tpu_synth.SynthCarry (tail, hist, demem) -> synth.SynthCarry."""
+    tail, hist, demem = carry
+    return SynthCarry(tail=_t(tail, device, np.float32),
+                      hist=_t(hist, device, np.float32),
+                      demem=_t(demem, device, np.float32))

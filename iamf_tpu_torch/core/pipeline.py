@@ -1,0 +1,209 @@
+"""Batched decode pipeline in PyTorch (counterpart of iamf_tpu/core/pipeline.py).
+
+One call decodes a batch of B = cfg.batch_frames frames:
+
+    per element:  demix chains (dsp/demix.py, elementwise, batched over B)
+                  -> render matmul (per-frame matrices, offset-split blend)
+                  -> element mix gain
+    mix:          sum over elements, then the output gain
+    head trim:    pre-limiter splice of the stream's leading trimmed samples
+    limiter:      + quantize/interleave: K3 on the card (dsp/limiter.py)
+
+Demix, render and mix are plain PyTorch for now (ROADMAP.md §2: a fused
+kernel only if a profile on the card shows it matters). The limiter is the
+only per-sample recurrence on this path.
+
+Not ported yet: the binaural HRTF branch (ROADMAP.md §1 item 7) and
+``emit_float`` for rate-mismatched streams (item 8); both raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..dsp.demix import DemixSpec, demix_frame, make_windows
+from ..dsp.limiter import LimiterConfig, init_state, limit_quantize
+from ..dsp.quantize import quantize_interleave
+
+FACTOR_KEYS = ("alpha", "beta", "gamma", "delta", "dw")
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementSpec:
+    """Static config of one element in the pipeline."""
+
+    demix: Optional[DemixSpec]  # None => passthrough (scene-based pre-mixed)
+    n_in: int  # decoded channels entering the pipeline
+    n_rendered: int  # channels after demix/reorder (render matrix rows input)
+    render_offset: int = 0  # DMRenderer offset split position (codec delay)
+    input_scale: float = 1.0  # applied when x arrives as integers
+    skip: int = 0  # demix smoothing split (codec delay % frame_size):
+    #   the first `skip` samples use the previous frame's factors
+    #   (demixer_set_frame_offset, demixer.c:537-563)
+    rg_index: tuple[int, ...] = ()  # recon-smoothed output-channel indices
+    per_sample_gain: bool = False  # elem gain arrives [B, T] instead of [B]
+    hrtf_taps: int = 0  # >0: binaural element (not ported, see module doc)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    frame_size: int
+    out_channels: int
+    bits: int
+    elements: tuple[ElementSpec, ...]
+    limiter: Optional[LimiterConfig]
+    per_sample_out_gain: bool = False
+    batch_frames: int = 128  # B: frames per decode_frames call
+    head_trim: int = 0  # leading samples spliced out PRE-limiter
+    #   (iamf_frame_trim, IAMF_decoder.c:1361-1381): trimmed samples never
+    #   drive the limiter envelope. The splice delays output by one batch;
+    #   callers discard the first call's output.
+    emit_float: bool = False  # rate-mismatch path (not ported)
+
+
+def _check_supported(cfg: PipelineConfig) -> None:
+    if any(es.hrtf_taps for es in cfg.elements):
+        raise NotImplementedError(
+            "binaural HRTF rendering is not ported yet (ROADMAP.md §1 item 7)")
+    if cfg.emit_float:
+        raise NotImplementedError(
+            "float emission for resampled streams is not ported yet "
+            "(ROADMAP.md §1 item 8)")
+
+
+def stream_params(cfg: PipelineConfig, tl, n_padded: int, device) -> dict:
+    """The replayed timeline (core/timeline.TimelineParams) as whole-stream
+    tensors on `device`, put once per decode. Each per-frame array is padded
+    to n_padded frames with neutral values:
+      factors:  list per element of [Np, 2, 5] float32 (prev/cur factors)
+      rg:       list per element of [Np, n_rg, 3] float32
+      mats:     list per element of [M, out, n_rendered] float32
+      mat_idx:  list per element of [Np, 2] int64 (prev, cur) into mats
+      elem_gain: list per element of [Np] (or [Np, T]) float32
+      out_gain: [Np] (or [Np, T]) float32"""
+
+    def pad_frames(a, fill):
+        if a.shape[0] >= n_padded:
+            return a[:n_padded]
+        tail = np.full((n_padded - a.shape[0],) + a.shape[1:], fill, a.dtype)
+        return np.concatenate([a, tail])
+
+    def put(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    params = {"factors": [], "rg": [], "mats": [], "mat_idx": [],
+              "elem_gain": []}
+    for ep in tl.elements:
+        params["factors"].append(put(pad_frames(ep.factors, 1.0)))
+        params["rg"].append(put(pad_frames(ep.rg, 0.0)))
+        params["mats"].append(put(ep.mats))
+        params["mat_idx"].append(put(pad_frames(ep.mat_idx, 0), np.int64))
+        params["elem_gain"].append(
+            put(pad_frames(ep.gain.astype(np.float32), 1.0)))
+    params["out_gain"] = put(pad_frames(tl.out_gain.astype(np.float32), 1.0))
+    return params
+
+
+def init_carry(cfg: PipelineConfig, device) -> dict:
+    """{'pos': frame position (host int), 'limiter': limiter state,
+    'splice': [out, B*T] head-trim carry}."""
+    _check_supported(cfg)
+    carry = {"pos": 0}
+    if cfg.limiter is not None:
+        carry["limiter"] = init_state(cfg.limiter, device)
+    if cfg.head_trim:
+        carry["splice"] = torch.zeros(
+            (cfg.out_channels, cfg.batch_frames * cfg.frame_size),
+            dtype=torch.float32, device=device)
+    return carry
+
+
+def _element_batch(cfg: PipelineConfig, i: int, x, fac, rg, m_prev, m_cur):
+    """Demix + render for ONE element over the batch: [B, out, T]."""
+    es = cfg.elements[i]
+    T = cfg.frame_size
+    dev = x.device
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32) * float(np.float32(es.input_scale))
+    if es.demix is not None:
+        if es.skip:
+            # the first `skip` samples use the previous frame's factors
+            mask = (torch.arange(T, device=dev) < es.skip).to(torch.float32)
+            factors_t = {
+                k: fac[:, 0, j, None] * mask + fac[:, 1, j, None] * (1.0 - mask)
+                for j, k in enumerate(FACTOR_KEYS)
+            }
+        else:
+            factors_t = {k: fac[:, 1, j, None]
+                         for j, k in enumerate(FACTOR_KEYS)}
+        if es.rg_index:
+            start_w, stop_w = (torch.from_numpy(w).to(dev)
+                               for w in make_windows(T, es.skip))
+            filt = (rg[:, :, 0:1] * stop_w[None, None]
+                    + rg[:, :, 1:2] * start_w[None, None])
+            # inactive rows (flags changed mid-stream) pass through
+            filt = rg[:, :, 2:3] * filt + (1.0 - rg[:, :, 2:3])
+        else:
+            filt = None
+        y = demix_frame(x, es.demix, factors_t, es.rg_index, filt)
+    else:
+        y = x
+    # render: blend previous/current matrices across the offset split
+    r = torch.matmul(m_cur, y)
+    if es.render_offset:
+        r_prev = torch.matmul(m_prev, y)
+        mask = (torch.arange(T, device=dev) < es.render_offset).to(
+            torch.float32)
+        r = r_prev * mask + r * (1.0 - mask)
+    return r
+
+
+def decode_frames(cfg: PipelineConfig, carry: dict, params: dict, xs: list):
+    """Decode one batch of B = cfg.batch_frames frames.
+
+    params: whole-stream tensors from ``stream_params``; the batch window
+    is sliced at the carry's frame position. xs: list per element of this
+    batch's [B, C_in, T] samples (int dtypes are scaled by
+    ElementSpec.input_scale). Returns (carry, pcm int [B*T, out_channels]);
+    pos advances by B."""
+    _check_supported(cfg)
+    B = cfg.batch_frames
+    T = cfg.frame_size
+    C = cfg.out_channels
+    pos = carry["pos"]
+
+    def sl(a):
+        return a[pos:pos + B]
+
+    mixed = None
+    for i, es in enumerate(cfg.elements):
+        mat_idx = sl(params["mat_idx"][i])
+        mats = params["mats"][i]
+        r = _element_batch(cfg, i, xs[i], sl(params["factors"][i]),
+                           sl(params["rg"][i]), mats[mat_idx[:, 0]],
+                           mats[mat_idx[:, 1]])
+        g = sl(params["elem_gain"][i])
+        r = r * g[:, None, :] if es.per_sample_gain else r * g[:, None, None]
+        mixed = r if mixed is None else mixed + r
+    og = sl(params["out_gain"])
+    mixed = (mixed * og[:, None, :] if cfg.per_sample_out_gain
+             else mixed * og[:, None, None])
+    carry = dict(carry, pos=pos + B)
+
+    flat = mixed.transpose(0, 1).reshape(C, B * T)
+    if cfg.head_trim:
+        # pre-limiter trim splice: delete the stream's leading trimmed
+        # samples from the mixed timeline, at a one-batch output latency
+        seq = torch.cat([carry["splice"], flat], dim=1)
+        carry = dict(carry, splice=flat)
+        flat = seq[:, cfg.head_trim:cfg.head_trim + B * T]
+
+    if cfg.limiter is not None:
+        lim_state, pcm = limit_quantize(cfg.limiter, carry["limiter"], flat,
+                                        cfg.bits, T)
+        return dict(carry, limiter=lim_state), pcm
+    return carry, quantize_interleave(flat, cfg.bits)

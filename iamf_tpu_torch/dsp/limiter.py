@@ -1,0 +1,240 @@
+"""Look-ahead peak limiter (counterpart of iamf_tpu/dsp/limiter.py;
+reference: audio_effect_peak_limiter.c process_block :94-201).
+
+Per sample k: peak = max of the look-ahead peak ring (the last
+``delay_size`` channel-max magnitudes); gain = the attack/release
+parabolic envelope (compute_target_gain :237-265, curve_accel :267-271),
+retriggered by a peak above threshold; output = delayed sample * gain.
+
+One batch of the decode pipeline goes through ``limit_quantize``: on a
+CUDA tensor the hand-written kernel K3 (csrc/limiter.cu) runs the limiter
+and the quantize/interleave epilogue; on a CPU tensor the plain twin runs
+the reference's structure (whole-batch fast path, else per frame: fast
+path or the per-sample recurrence). The recurrence's per-sample loop runs
+on a host copy, in numpy float32 scalars with the reference's operation
+order: a loop of per-sample device launches is exactly what K3 replaces.
+
+State (a dict of tensors; core/pipeline.py carries it across batches):
+  env:         float32 [4] = current_gain, target_start_gain,
+               target_end_gain, current_tc (-1 = idle)
+  delay_data:  [C, D] delay line;  peak_data: [D] peak ring
+  entry_index: int32 [1], ring slot of the oldest entry
+Only sample-peak metering is ported; true_peak raises NotImplementedError
+(ROADMAP.md §1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels.build import F, I, Kernel, P
+from .quantize import quantize_interleave
+
+LIMITER_THRESHOLD_DB = -1.0
+LIMITER_ATTACK_SEC = 0.001
+LIMITER_RELEASE_SEC = 0.200
+LIMITER_LOOKAHEAD = 240
+
+K3 = Kernel("iamf_k3_limiter",
+            [P, I, I, P, P, P, I, P, F, F, F, F, I, P, P, P, P, P, P])
+
+
+@dataclasses.dataclass(frozen=True)
+class LimiterConfig:
+    threshold_db: float = LIMITER_THRESHOLD_DB
+    sample_rate: int = 48000
+    channels: int = 2
+    attack_sec: float = LIMITER_ATTACK_SEC
+    release_sec: float = LIMITER_RELEASE_SEC
+    delay_size: int = LIMITER_LOOKAHEAD
+    true_peak: bool = False  # USE_TRUEPEAK branch: not ported
+
+    @property
+    def linear_threshold(self) -> float:
+        return float(10.0 ** (self.threshold_db / 20.0))
+
+    @property
+    def inc_tc(self) -> float:
+        return 1.0 / self.sample_rate
+
+
+def _require_sample_peak(cfg: LimiterConfig) -> None:
+    if cfg.true_peak:
+        raise NotImplementedError(
+            "true-peak limiter metering is not ported yet (ROADMAP.md §1 "
+            "item 9)")
+
+
+def init_state(cfg: LimiterConfig, device) -> dict:
+    _require_sample_peak(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "env": torch.tensor([1.0, -1.0, -1.0, -1.0], **f32),
+        "delay_data": torch.zeros((cfg.channels, cfg.delay_size), **f32),
+        "peak_data": torch.zeros((cfg.delay_size,), **f32),
+        "entry_index": torch.zeros((1,), dtype=torch.int32, device=device),
+    }
+
+
+def input_peaks(cfg: LimiterConfig, x):
+    """Per-sample channel-max magnitudes feeding the peak ring. x: [C, T]."""
+    _require_sample_peak(cfg)
+    return torch.amax(torch.abs(x), dim=0)
+
+
+def _curve_accel(v):
+    one = np.float32(1.0)
+    if v > one:
+        return one
+    if v < np.float32(0.0):
+        return np.float32(0.0)
+    d = v - one
+    return one - d * d
+
+
+def _gain_walk(cfg: LimiterConfig, env: np.ndarray, window_peaks):
+    """_gain_step over a run of samples in numpy float32 scalars, in the
+    reference's operation order. window_peaks[k] = max of the ring at step
+    k. Returns (gains float32 [K], env')."""
+    f = np.float32
+    atk, rel = f(cfg.attack_sec), f(cfg.release_sec)
+    inc, thr = f(cfg.inc_tc), f(cfg.linear_threshold)
+    relatk = rel + atk
+    g, tsg, teg, tc = (f(v) for v in env)
+    gains = np.empty(len(window_peaks), np.float32)
+    for k, peak in enumerate(window_peaks):
+        active = tc != f(-1.0)
+        in_attack = active and tc < atk
+        in_release = active and tc < relatk
+        tcn = tc + inc if (in_attack or in_release) else tc
+        if in_attack:
+            g = tsg - _curve_accel(tcn / atk) * (tsg - teg)
+        elif in_release:
+            g = teg + _curve_accel((tcn - atk) / rel) * (f(1.0) - teg)
+        else:
+            g = f(1.0)
+        if peak * g > thr:
+            tsg, teg, tc = g, thr / peak, f(0.0)
+        else:
+            tc = tcn
+        gains[k] = g
+    return gains, np.array([g, tsg, teg, tc], np.float32)
+
+
+def _advance(cfg: LimiterConfig, state: dict, x, peaks_in, gains=None,
+             env=None):
+    """Push x [C, N] through the delay line and peaks_in through the ring;
+    the delayed output is multiplied by `gains` (None: gain 1, the idle
+    envelope's fast path, fast_pass)."""
+    D = cfg.delay_size
+    N = x.shape[1]
+    dev = x.device
+    idx = int(state["entry_index"][0])
+    order = (idx + torch.arange(D, device=dev)) % D
+    seq = torch.cat([state["delay_data"][:, order], x], dim=1)
+    y = seq[:, :N]
+    if gains is not None:
+        y = y * torch.from_numpy(gains).to(dev)
+    peaks_seq = torch.cat([state["peak_data"][order], peaks_in])
+    new_idx = (idx + N) % D
+    inv = (torch.arange(D, device=dev) - new_idx) % D
+    new_state = dict(
+        state,
+        delay_data=seq[:, N:N + D][:, inv],
+        peak_data=peaks_seq[N:N + D][inv],
+        entry_index=torch.tensor([new_idx], dtype=torch.int32, device=dev),
+    )
+    if env is not None:
+        new_state["env"] = torch.from_numpy(env).to(dev)
+    return new_state, y
+
+
+def fast_pass(cfg: LimiterConfig, state: dict, x, peaks_in):
+    """Below-threshold idle path: pure delay-line passthrough (gain 1)."""
+    return _advance(cfg, state, x, peaks_in)
+
+
+def _can_fast(cfg: LimiterConfig, state: dict, peaks_in) -> bool:
+    thr = np.float32(cfg.linear_threshold)
+    return (float(state["env"][3]) == -1.0
+            and np.float32(state["peak_data"].max()) <= thr
+            and np.float32(peaks_in.max()) <= thr)
+
+
+def _scan(cfg: LimiterConfig, state: dict, x, peaks_in):
+    """The per-sample recurrence over one block (reference slow path)."""
+    D = cfg.delay_size
+    N = x.shape[1]
+    idx = int(state["entry_index"][0])
+    ring = state["peak_data"].cpu().numpy()
+    S = np.concatenate([ring[(idx + np.arange(D)) % D],
+                        peaks_in.cpu().numpy()])
+    window = np.lib.stride_tricks.sliding_window_view(S, D)[:N].max(axis=1)
+    gains, env = _gain_walk(cfg, state["env"].cpu().numpy(), window)
+    return _advance(cfg, state, x, peaks_in, gains, env)
+
+
+def limit_plain(cfg: LimiterConfig, state: dict, x, frame: int):
+    """Plain twin of the limiter: the reference's fast/slow structure over
+    x [C, N] (N a multiple of `frame`). Returns (state', limited [C, N])."""
+    K3.note_plain(x)
+    peaks_in = input_peaks(cfg, x)
+    if _can_fast(cfg, state, peaks_in):
+        return fast_pass(cfg, state, x, peaks_in)
+    outs = []
+    for f0 in range(0, x.shape[1], frame):
+        xf, pf = x[:, f0:f0 + frame], peaks_in[f0:f0 + frame]
+        step = fast_pass if _can_fast(cfg, state, pf) else _scan
+        state, y = step(cfg, state, xf, pf)
+        outs.append(y)
+    return state, torch.cat(outs, dim=1)
+
+
+def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
+    """K3 on the card: x [C, N] -> (state', pcm [N, C] int)."""
+    _require_sample_peak(cfg)
+    C, N = x.shape
+    D = cfg.delay_size
+    if C != cfg.channels or x.dtype != torch.float32:
+        raise ValueError(f"K3 takes float32 [{cfg.channels}, N], got "
+                         f"{x.dtype} {list(x.shape)}")
+    if bits not in (16, 24, 32):
+        raise ValueError(f"bits {bits}")
+    shapes = {"env": (4,), "delay_data": (C, D), "peak_data": (D,),
+              "entry_index": (1,)}
+    if any(tuple(state[k].shape) != s for k, s in shapes.items()):
+        raise ValueError(f"K3 limiter state shapes: want {shapes}, got "
+                         f"{ {k: tuple(state[k].shape) for k in shapes} }")
+    state = {k: state[k].contiguous() for k in shapes}
+    x = x.contiguous()
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = torch.empty((D + 3 * N,), **f32)
+    out = torch.empty((N, C), dtype=torch.int16 if bits == 16 else torch.int32,
+                      device=dev)
+    new = {
+        "env": torch.empty((4,), **f32),
+        "delay_data": torch.empty((C, D), **f32),
+        "peak_data": torch.empty((D,), **f32),
+        "entry_index": torch.empty((1,), dtype=torch.int32, device=dev),
+    }
+    K3(x, C, N, state["delay_data"], state["peak_data"],
+       state["entry_index"], D, state["env"],
+       cfg.attack_sec, cfg.release_sec, cfg.inc_tc, cfg.linear_threshold,
+       bits, scratch, out, new["delay_data"], new["peak_data"],
+       new["entry_index"], new["env"])
+    return new, out
+
+
+def limit_quantize(cfg: LimiterConfig, state: dict, x, bits: int,
+                   frame: int):
+    """Limiter + quantize/interleave for one batch: x [C, N] float32 ->
+    (state', pcm [N, C] int16/int32). CUDA tensors run K3; CPU tensors run
+    the plain twin (limit_plain, then quantize_interleave)."""
+    if x.is_cuda:
+        return limit_quantize_cuda(cfg, state, x, bits)
+    state, y = limit_plain(cfg, state, x, frame)
+    return state, quantize_interleave(y, bits)

@@ -1,0 +1,67 @@
+"""The port's decode slice as a whole on the CPU: BatchedStreamDecoder of
+iamf_tpu_torch vs iamf_tpu's, and the stored golden the GPU run is held to.
+
+Bound: same shape, <= 1 LSB (the IMDCT's folded constants and the
+de-emphasis order may move a sample by one LSB).
+"""
+
+import functools
+import os
+
+import numpy as np
+import pytest
+
+import vectors
+from iamf_tpu.codecs.opus.decoder import OpusDecoder
+from iamf_tpu.constants import ChannelLayout
+from iamf_tpu.core.batch_decoder import BatchedStreamDecoder as JaxDecoder
+from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SAMPLE = os.path.join(ROOT, "iamf_tpu", "data", "sample_opus_714.iamf")
+GOLDEN = os.path.join(ROOT, "iamf_tpu_torch", "data",
+                      "sample_opus_714_ssJ.npz")
+
+
+@functools.lru_cache(maxsize=None)
+def _stream(name):
+    if name == "opus_sample":
+        return open(SAMPLE, "rb").read()
+    return vectors.build_pcm_layout_stream(
+        ChannelLayout.L714, n_frames=20, amp=0.5)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decode(name):
+    return JaxDecoder(_stream(name), sound_system=9,
+                      batch_frames=8).decode_all()
+
+
+def test_golden_is_current():
+    """The golden chip_smoke.py holds the GPU decode to is exactly the JAX
+    package's current decode of the sample (sound system J, batch 8)."""
+    golden = np.load(GOLDEN)["pcm"]
+    want = _jax_decode("opus_sample")
+    assert golden.dtype == want.dtype and np.array_equal(golden, want)
+
+
+@pytest.mark.parametrize("name", ["opus_sample", "pcm714"])
+def test_decode_all_matches_jax(name):
+    want = _jax_decode(name)
+    got = BatchedStreamDecoder(_stream(name), sound_system=9, batch_frames=8,
+                               device="cpu").decode_all()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1, f"{d.max()} LSB"
+
+
+@pytest.mark.parametrize("split", [("silk", 960, 1), ("hybrid", 960, 1),
+                                   ("celt", 480, 2), ("host", 960, 1)])
+def test_unported_opus_operating_points_raise(monkeypatch, split):
+    """Only CELT-960 with one frame per unit reaches the device synthesis;
+    every other split of an Opus element is refused up front."""
+    monkeypatch.setattr(OpusDecoder, "classify_packets",
+                        lambda self, pkts, frame_size: split)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchedStreamDecoder(_stream("opus_sample"), sound_system=9,
+                             batch_frames=8, device="cpu")

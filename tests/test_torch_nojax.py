@@ -1,0 +1,118 @@
+"""The PyTorch port runs without JAX, and refuses to run on a CUDA device
+that is not there.
+
+The test process itself imports JAX (tests/conftest.py), so the JAX-free
+decode runs in a subprocess with ``sys.modules["jax"] = None``: any import
+of JAX there raises. codecs/base._ensure_registered swallows ImportError,
+so the subprocess also checks that the Opus codec is still registered.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+NOJAX_DECODE = r"""
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import iamf_tpu_torch
+from iamf_tpu.codecs import base
+from iamf_tpu.constants import Codec
+from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+assert Codec.OPUS in base.available_codecs(), base.available_codecs()
+root = sys.argv[1]
+data = open(root + "/iamf_tpu/data/sample_opus_714.iamf", "rb").read()
+out = BatchedStreamDecoder(data, sound_system=9, batch_frames=8,
+                           device="cpu").decode_all()
+want = np.load(root + "/iamf_tpu_torch/data/sample_opus_714_ssJ.npz")["pcm"]
+assert out.shape == want.shape
+assert np.abs(out.astype(np.int32) - want.astype(np.int32)).max() <= 1
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print("NOJAX-OK")
+"""
+
+
+def test_decode_without_jax():
+    r = subprocess.run([sys.executable, "-c", NOJAX_DECODE, ROOT],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX-OK" in r.stdout
+
+
+def test_sources_import_no_jax():
+    pkg = os.path.join(ROOT, "iamf_tpu_torch")
+    bad = []
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            for node in ast.walk(ast.parse(open(path).read())):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                bad += [(path, n) for n in names
+                        if n == "jax" or n.startswith("jax.")]
+    assert not bad
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_refuses_without_card(where, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: this checks the refusal")
+    script = os.path.join(ROOT, "chip_smoke.py")
+    if where == "alone":
+        script = shutil.copy(script, tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                       text=True, timeout=300, cwd=tmp_path)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: this checks the refusal")
+    from iamf_tpu_torch import require_cuda, resolve_device
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        require_cuda()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedStreamDecoder(data, sound_system=9, device="cuda")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A kernel's wrapper never hands a CPU pointer to the device: it
+    raises before building or loading anything."""
+    from iamf_tpu_torch.codecs.opus import imdct, synth
+    from iamf_tpu_torch.dsp import limiter
+
+    cfg = limiter.LimiterConfig(channels=2)
+    calls = {
+        "K1": lambda: imdct.imdct_overlap_cuda(
+            imdct.FusedMats(), torch.zeros(1, 2, 960),
+            torch.zeros(1, 2, dtype=torch.bool), torch.zeros(2, 60)),
+        "K2": lambda: synth.comb_deemph_cuda(
+            torch.zeros(120), torch.zeros(1, 2, 960), torch.zeros(1, 2, 973),
+            torch.zeros(2, synth.HIST), torch.zeros(2)),
+        "K3": lambda: limiter.limit_quantize_cuda(
+            cfg, limiter.init_state(cfg, "cpu"), torch.zeros(2, 960), 16),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
