@@ -7,7 +7,10 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
   1. build: compiles the kernel library with nvcc and reports the seconds;
   2. kernels: K1 (IMDCT+TDAC), K2 (comb+de-emphasis+s16) and K3
      (limiter+quantize) at the main path's batch shape against their plain
-     PyTorch twins, with each one's time and its twin's;
+     PyTorch twins, with each one's time and its twin's; K1 also at the
+     Opus cell's batch of 8, with its device time (torch.profiler), and
+     its product kernel's SASS must hold tensor-core (HGMMA) and TMA
+     (UTMALDG) instructions;
   3. Opus end to end: iamf_tpu/data/sample_opus_714.iamf -> sound system J
      at batch_frames=8 against the stored golden (the JAX package's decode),
      with the kernels' launch counts from that run;
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -36,6 +41,7 @@ sys.modules["jax"] = None  # the port must run without JAX: fail loudly
 import torch  # noqa: E402
 
 B_MAIN = 128   # the bench's batch_frames
+B_OPUS = 8     # the Opus cell's batch_frames
 LANES = 12     # 7.1.4 lanes
 FRAME = 960
 
@@ -60,6 +66,23 @@ def cuda_ms(fn, reps: int = 20, warm: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps: int = 20) -> tuple[float, dict]:
+    """Device time per call of fn() in ms from a torch.profiler trace of
+    `reps` calls after a warm-up: the total over every kernel and memset,
+    and the time of each by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {ev.key: ev.self_device_time_total / reps / 1e3
+           for ev in prof.key_averages() if ev.self_device_time_total > 0}
+    return sum(per.values()), per
 
 
 def host_ms(fn) -> tuple[float, object]:
@@ -92,31 +115,64 @@ def check(cond: bool, msg: str) -> None:
 
 # --- phase 2: kernels vs plain twins ----------------------------------------
 
-def k1_phase(dev, tag):
+def sass_counts(lib, kernel: str, opcodes) -> dict:
+    """How many instructions of each opcode the named kernel's SASS holds
+    (cuobjdump of the built library)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.split(None, 1)[0]]
+    check(len(funcs) == 1, f"{kernel}: {len(funcs)} SASS functions")
+    return {op: len(re.findall(rf"\b{op}\b", funcs[0])) for op in opcodes}
+
+
+def k1_phase(dev, tag, lib):
     from iamf_tpu_torch.codecs.opus import imdct
 
-    rng = np.random.RandomState(0)
-    # spectra at the scale of tests/test_opus_pallas.py (s16-scale output)
-    freq = torch.from_numpy(
-        rng.randn(B_MAIN, LANES, FRAME).astype(np.float32) * 1000.0).to(dev)
-    trans = torch.from_numpy(rng.rand(B_MAIN, LANES) < 0.3).to(dev)
-    tail0 = torch.from_numpy(
-        rng.randn(LANES, 60).astype(np.float32) * 1024.0).to(dev)
+    counts = sass_counts(lib, "k1_product", ("HGMMA", "UTMALDG"))
+    print(f"K1 product kernel SASS: {counts}")
+    check(all(counts.values()), f"K1 misses tensor cores or TMA: {counts}")
     mats = imdct.FusedMats().to(dev)
-    y, tail = imdct.imdct_overlap_cuda(mats, freq, trans, tail0)
-    y_p, tail_p = imdct.imdct_overlap_plain(mats, freq, trans, tail0)
-    torch.cuda.synchronize()
-    err = max(float((y - y_p).abs().max()), float((tail - tail_p).abs().max()))
-    print(f"K1 imdct [B={B_MAIN}, L={LANES}]: max|diff| {err:.3e} "
-          "(bound 0.25)")
-    check(err < 0.25, f"K1 disagrees with its plain twin: {err}")
-    ms = cuda_ms(lambda: imdct.imdct_overlap_cuda(mats, freq, trans, tail0))
-    plain = cuda_ms(lambda: imdct.imdct_overlap_plain(mats, freq, trans,
+    row = dict(name="k1_imdct_tdac", max_abs_err=0.0)
+    for B in (B_MAIN, B_OPUS):
+        rng = np.random.RandomState(0)
+        # the packed [B, L, 973] buffer read in place, as the decode path
+        # does; spectra at the scale of tests/test_opus_pallas.py
+        buf = torch.from_numpy(rng.randn(B, LANES, FRAME + 13).astype(
+            np.float32) * 1000.0).to(dev)
+        freq = buf[..., :FRAME]
+        trans = torch.from_numpy(rng.rand(B, LANES) < 0.3).to(dev)
+        tail0 = torch.from_numpy(
+            rng.randn(LANES, 60).astype(np.float32) * 1024.0).to(dev)
+        y, tail = imdct.imdct_overlap_cuda(mats, freq, trans, tail0)
+        y_p, tail_p = imdct.imdct_overlap_plain(mats, freq, trans, tail0)
+        torch.cuda.synchronize()
+        err = max(float((y - y_p).abs().max()),
+                  float((tail - tail_p).abs().max()))
+        print(f"K1 imdct [B={B}, L={LANES}]: max|diff| {err:.3e} "
+              "(bound 0.25)")
+        check(err < 0.25, f"K1 disagrees with its plain twin: {err}")
+        ms = cuda_ms(lambda: imdct.imdct_overlap_cuda(mats, freq, trans,
                                                       tail0))
-    gflop = B_MAIN * LANES * FRAME * (FRAME + 60) * 2 / 1e9
-    print(f"K1 time {ms:.4f} ms ({gflop / ms:.2f} TFLOP/s fp32 on the "
-          f"product), plain twin (torch.matmul) {plain:.4f} ms {tag}")
-    return dict(name="k1_imdct_tdac", max_abs_err=err, ms=ms, plain_ms=plain)
+        plain = cuda_ms(lambda: imdct.imdct_overlap_plain(mats, freq, trans,
+                                                          tail0))
+        dev_ms, per = device_ms(lambda: imdct.imdct_overlap_cuda(
+            mats, freq, trans, tail0))
+        prod = sum(v for k, v in per.items() if "k1_product" in k)
+        dev_plain, _ = device_ms(lambda: imdct.imdct_overlap_plain(
+            mats, freq, trans, tail0))
+        gflop = B * LANES * FRAME * (FRAME + 60) * 2 / 1e9
+        print(f"K1 time [B={B}] {ms:.4f} ms per call ({gflop / ms:.2f} "
+              f"TFLOP/s of useful fp32-equivalent work, split-TF32 tensor "
+              f"cores), plain twin (torch.matmul fp32, both modes) "
+              f"{plain:.4f} ms; device time per call {dev_ms:.4f} ms "
+              f"(product kernel {prod:.4f} ms), twin {dev_plain:.4f} ms "
+              f"{tag}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if B == B_MAIN:
+            row.update(ms=ms, plain_ms=plain)
+    return row
 
 
 def _comb_params(rng, B, L):
@@ -324,7 +380,7 @@ def main() -> int:
     print(f"build: {secs:.2f} s for {len(kbuild.sources())} sources -> "
           f"{os.path.relpath(path, ROOT)}")
 
-    rows = [k1_phase(dev, tag), k2_phase(dev, tag), k3_phase(dev, tag)]
+    rows = [k1_phase(dev, tag, path), k2_phase(dev, tag), k3_phase(dev, tag)]
     kernels = (K1, K2, K3)
     launches = opus_phase(dev, tag, kernels)
     pcm_phase(dev, tag)

@@ -10,11 +10,13 @@ linear in (spectrum, previous frame's raw 60-sample MDCT tail), so
 
 with A [960, 960], C [960, 60], D [60, 960] built once in float64 and
 rounded to float32 (``fused_mats``). On a CUDA tensor the hand-written
-kernel csrc/imdct.cu runs (design and bound in its source note); on a CPU
-tensor the plain twin ``imdct_overlap_plain`` runs the same formula with
-``torch.matmul``. The folded constants differ from the reference's jnp
-path (window applied after the matmul) by < 2e-2 at s16 scale; the tests
-hold both to the 0.25 bound of tests/test_opus_pallas.py.
+kernel csrc/imdct.cu runs (design and bound in its source note): one
+split-TF32 tensor-core product per mode with W = [A | D | 0]
+(``product_mats``, columns in ``k_order``, stored split by
+``split_tf32``), then C, which has 120 nonzeros, as an epilogue. On a CPU tensor the plain twin ``imdct_overlap_plain`` runs the
+folded formula with ``torch.matmul``. The folded constants differ from the
+reference's jnp path (window applied after the matmul) by < 2e-2 at s16
+scale; the tests hold both to the 0.25 bound of tests/test_opus_pallas.py.
 """
 
 from __future__ import annotations
@@ -29,13 +31,14 @@ from ...kernels.build import I, Kernel, P
 
 FRAME = 960
 OVER = 60  # TDAC mirror half-overlap (celt overlap 120, mirror mixes 60)
+NOUT = 1024  # K1's product columns: 960 samples, 60 tail, 4 zero
 
 _TABLES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))),
     "iamf_tpu", "codecs", "opus", "data", "opus_tables.npz")
 
-K1 = Kernel("iamf_k1_imdct", [P, I, P, P, I, I] + [P] * 6 + [P] * 4)
+K1 = Kernel("iamf_k1_imdct", [P, I, P, P, I, I] + [P] * 5 + [P] * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,14 +109,62 @@ def fused_mats():
     return (t32(a_l), t32(a_s), t32(c_l), t32(c_s), t32(d_l), t32(d_s))
 
 
+def k_order() -> np.ndarray:
+    """The contraction order of K1's product: slot q of each 32-deep k-step
+    holds spectrum offset p(q) of the step. With q = 8 kk + 4 h + t (8-deep
+    slice kk, TF32 wgmma A-fragment column t + 4 h), p = 8 t + 2 kk + h puts
+    each thread's 8 values of a step next to each other in shared memory."""
+    q = np.arange(32)
+    kk, h, t = q // 8, (q // 4) % 2, q % 4
+    p = 8 * t + 2 * kk + h
+    return (np.arange(0, FRAME, 32)[:, None] + p).reshape(-1)
+
+
+def product_mats():
+    """K1's product matrices (W_long, W_short), float32 [1024, 960]:
+    W = [A | D | 0], rows 0..959 the output samples, 960..1019 the new raw
+    tail, 4 zero rows; K-major as TF32 wgmma takes its B operand, columns
+    in ``k_order()``."""
+    atl, ats, _, _, dtl, dts = fused_mats()
+    pad = np.zeros((NOUT - FRAME - OVER, FRAME), np.float32)
+    order = k_order()
+    return tuple(
+        np.ascontiguousarray(np.concatenate([a.T, d.T, pad])[:, order])
+        for a, d in ((atl, dtl), (ats, dts)))
+
+
+def split_tf32(x: np.ndarray):
+    """(hi, lo), float32 with the low 13 mantissa bits zero: hi = x rounded
+    to TF32, lo = (x - hi) rounded to TF32, both to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 rounds. hi + lo is within 2^-22 of x."""
+    def rna(v):
+        b = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+            np.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_product_mats():
+    return tuple(split_tf32(w) for w in product_mats())
+
+
 class FusedMats(torch.nn.Module):
-    """The six folded constants as buffers, moved with ``.to(device)``."""
+    """The folded constants as buffers, moved with ``.to(device)``: the six
+    matrices of the plain twin (atl .. dts), K1's product matrices split in
+    TF32 (w_long_hi, w_long_lo, w_short_hi, w_short_lo) and the window."""
 
     def __init__(self):
         super().__init__()
         for name, m in zip(("atl", "ats", "ctl", "cts", "dtl", "dts"),
                            fused_mats()):
             self.register_buffer(name, torch.from_numpy(m.copy()))
+        for mode, (hi, lo) in zip(("long", "short"), _split_product_mats()):
+            self.register_buffer(f"w_{mode}_hi", torch.from_numpy(hi.copy()))
+            self.register_buffer(f"w_{mode}_lo", torch.from_numpy(lo.copy()))
+        self.register_buffer("window", torch.from_numpy(window120().copy()))
 
 
 def _tail_in(tails, tail0):
@@ -156,8 +207,8 @@ def imdct_overlap_cuda(mats: FusedMats, freq, transient, tail0):
     tails = torch.empty((R, OVER), dtype=torch.float32, device=dev)
     lists = torch.empty((2 * R,), dtype=torch.int32, device=dev)
     counts = torch.empty((2,), dtype=torch.int32, device=dev)
-    K1(freq, ld, trans, tail0, B, L, mats.atl, mats.ats, mats.ctl, mats.cts,
-       mats.dtl, mats.dts, y, tails, lists, counts)
+    K1(freq, ld, trans, tail0, B, L, mats.w_long_hi, mats.w_long_lo,
+       mats.w_short_hi, mats.w_short_lo, mats.window, y, tails, lists, counts)
     return y, tails[(B - 1) * L:]
 
 

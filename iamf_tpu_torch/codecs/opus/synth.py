@@ -114,6 +114,14 @@ class CeltSynth(torch.nn.Module):
         self.register_buffer("window", torch.from_numpy(window120().copy()))
 
 
+@functools.lru_cache(maxsize=None)
+def celt_synth(device: torch.device) -> CeltSynth:
+    """The CELT-960 constants on `device`, built and uploaded once: they are
+    read-only, so every decoder on the device shares them (23 MB with K1's
+    split-TF32 matrices)."""
+    return CeltSynth().to(device)
+
+
 # --- plain twin of K2 -------------------------------------------------------
 
 def comb_coeffs(window: torch.Tensor, p: SynthParams):

@@ -255,7 +255,7 @@ class BatchedStreamDecoder:
             item = self.db.elements[econf.element_id]
             self.elems.append(
                 self._open_element(item, econf, sound_system, out_ch))
-        self.synth = (opus_synth.CeltSynth().to(self.device)
+        self.synth = (opus_synth.celt_synth(self.device)
                       if any(e.opus for e in self.elems) else None)
         out_gain_default = db_to_linear(
             q78_to_db(sub.output_mix_gain.default_mix_gain_q78))

@@ -1,45 +1,224 @@
-// K1: CELT-960 IMDCT + TDAC overlap as folded constant products.
+// K1: CELT-960 IMDCT + TDAC overlap as one split-TF32 tensor-core product
+// per mode, plus a 120-sample overlap epilogue.
 //
 // Replaces the one Pallas kernel of the reference,
 // iamf_tpu/codecs/opus/pallas_imdct.py fused_imdct_overlap / _kernel
 // (constants from _fused_mats). Every output sample of a frame is linear in
-// (spectrum, previous frame's raw 60-sample tail), so
-//     y     = freq . A_mode^T + tail_in . C_mode^T   (mode = long | short)
+// (spectrum, previous frame's raw 60-sample tail):
+//     y     = freq . A_mode^T + tail_in . C^T     (mode = long | short)
 //     tail' = freq . D_mode^T
-// with A [960,960], C [960,60], D [60,960] per mode, built in float64 and
-// rounded once to float32 on the host (codecs/opus/imdct.py fused_mats).
+// C is the same for both modes and has 120 nonzeros, all in output columns
+// 0..119: y[j] += w[119-j] * tail_in[j < 60 ? j : 119-j].
 //
-// Design for Hopper, not a copy of the TPU kernel:
-// - The TPU kernel walks frames in grid order to carry the tail in VMEM and
-//   computes BOTH modes' products, selecting afterwards. Here frame b's
-//   incoming tail is just freq[b-1] . D_{mode(b-1)}^T (tail0 for b = 0), so
-//   pass 1 computes every row's 60-wide tail, after which all B*L rows are
-//   independent.
-// - Rows are partitioned by mode into two index lists (atomic slots; the
-//   order inside a list does not change any result), and pass 2 is one
-//   shared-memory-tiled fp32 product per mode over K = 960 + 60 (spectrum
-//   then incoming tail), each row multiplied by its own mode's matrix only.
+// Design for Hopper:
+// - One product per mode over K = 960: W_mode = [A_mode | D_mode | 0]
+//   (1024 x 960, built on the host in codecs/opus/imdct.py), so each row's
+//   960 output samples and its 60-sample new tail come out of one product.
+//   Once every tail exists, the C term is a separate elementwise epilogue
+//   (k1_overlap); no frame chain remains and all B*L rows are independent.
+// - Rows are split by mode into two index lists (atomic slots). A row's
+//   result does not depend on its slot or on any other row, so the output
+//   is deterministic. Each 64-row tile multiplies only its own mode's W.
+// - Tensor cores in split TF32: W is stored as hi = tf32(W) and
+//   lo = tf32(W - hi) (round to nearest, as cvt.rna.tf32.f32), and the
+//   kernel splits the spectra the same way. Each 8-deep slice issues
+//   a_hi.b_hi + a_hi.b_lo + a_lo.b_hi (wgmma m64n64k8 .tf32). The dropped
+//   a_lo.b_lo term and the residuals are below 2^-22 of each product: on the
+//   host (numpy against float64, 1536 rows of randn*1000 spectra, peak
+//   output 1.2e5) the split alone errs by 0.008, fp32 SGEMM by 0.063 and
+//   plain TF32 by 29.0, against the 0.25 bound of tests/test_opus_pallas.py.
+// - The tensor cores' fp32 accumulation truncates: accumulating all of K
+//   there errs by 0.87 against the plain twin on the card. So each 32-deep
+//   k-step starts a fresh partial (12 instructions), and the 30 partials
+//   are summed on the CUDA cores with round-to-nearest (0.16).
+// - W tiles arrive by TMA (128-byte swizzle, box 32 k x 64 n) into a ring
+//   of STAGES buffers behind mbarriers, fed by one producer thread.
+// - The spectra cannot take TMA or 16-byte cp.async: the packed rows are
+//   973 floats (3892 B) apart, not 16-byte aligned, and they are gathered
+//   through the mode lists. So each consumer warpgroup loads them with
+//   coalesced 4-byte loads two k-steps ahead, stores them as fp32 into a
+//   double-buffered tile, and reads back its own wgmma A fragments, which
+//   it splits and keeps in registers (A from registers: the tensor cores
+//   then read only W from shared memory). The contraction order within each
+//   step is permuted (imdct.py k_order) so that a thread's fragment values
+//   lie next to each other in the tile; W's columns are permuted to match.
 //
-// What bounds it: at B = 128, L = 12 pass 2 is 1536 x 960 x 1020 x 2 =
-// 3.0 GFLOP against ~20 MB of traffic (spectra in, PCM out, 7.6 MB of
-// constants mostly from L2), about 150 FLOP/byte. TF32 is not allowed (the
-// reference contracts at Precision.HIGHEST), so it is compute-bound on the
-// fp32 CUDA cores. The tile loop below (64x64 block tile, 4x4 per thread,
-// fmaf) is the simple first version; larger register tiles, vector loads
-// and double-buffered shared memory are later work.
+// What bounds it: at B = 128, L = 12 the useful work is 1536 x 1020 x 960
+// x 2 = 3.0 GFLOP; split TF32 makes it ~9 GFLOP of TF32 tensor work at
+// N = 1024 (plus whole 64-row tiles), ~18 us at the card's 495 TFLOP/s.
+// Bytes: each 128 x 64 block reads 64 x 960 x 8 B of W (from L2: the four
+// W buffers are 15.7 MB) and 128 rows of spectra, ~200 MB of L2 traffic in
+// all, and 6 MB of PCM out. Measured, the product takes ~65 us: each
+// warpgroup's k-step (12 narrow m64n64k8 instructions, then a wait for them
+// and the partial's promotion) runs at ~40 % of the tensor rate, with one
+// block per SM (registers) and 1.6 waves of blocks. At B = 8 (96 rows) only
+// 2 row tiles exist; the 64-wide N tile gives 32 blocks instead of 16 (a
+// 128-wide tile was slower at B = 8; PERF.md has the variants).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int N = 960;
-constexpr int OVER = 60;
-constexpr int KTOT = N + OVER;
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int TR = 12;                          // rows per tails block
+constexpr int N = 960;           // spectrum length = samples per frame
+constexpr int OVER = 60;         // raw tail length
+constexpr int NOUT = 1024;       // product columns: 960 y, 60 tail, 4 pad
+constexpr int BM = 64;           // rows per consumer warpgroup (wgmma M)
+constexpr int WGS = 2;           // consumer warpgroups per block
+constexpr int BN = 64;           // product columns per block (wgmma N)
+constexpr int BK = 32;           // k per step: one 128-byte swizzle row
+constexpr int KSTEPS = N / BK;   // 30
+constexpr int STAGES = 4;        // W ring depth
+constexpr int THREADS = WGS * 128 + 32;  // consumers + one producer warp
+constexpr int ROWS = WGS * BM;           // rows per block
+
+constexpr int A_LD = BK + 4;           // floats per staged spectrum row
+constexpr int A_TILE = BM * A_LD * 4;  // 9 KB: 64 rows x 32 k, fp32
+constexpr int B_TILE = BN * BK * 4;    // 8 KB: hi or lo of 64 cols x 32 k
+// dynamic shared memory, from a 1024-byte aligned base (128-byte swizzle)
+constexpr int OFF_B = 0;                            // [STAGES][hi, lo]
+constexpr int OFF_A = OFF_B + STAGES * 2 * B_TILE;  // [WGS][2 buffers]
+constexpr int OFF_BAR = OFF_A + WGS * 2 * A_TILE;   // full, empty
+constexpr int OFF_ROWS = OFF_BAR + 2 * STAGES * 8;  // int[ROWS]
+constexpr int SMEM_BYTES = OFF_ROWS + ROWS * 4 + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// one [BN rows x BK floats] box of a W buffer at (k, n) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int k, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(n)
+      : "memory");
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// wgmma descriptor of a K-major tile with 128-byte swizzle: rows of 128 B,
+// 8-row groups 1024 B apart (SBO), LBO unused for this layout
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// keep the compiler from moving register reads or writes across an
+// asynchronous wgmma that uses them
+__device__ __forceinline__ void acc_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 64] = (SCALE_D ? d : 0) + a[64 x 8] . b[64 x 8]^T: a tf32 from
+// registers (this thread's fragment), b tf32 from shared memory
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(SCALE_D));
+}
+
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+// Store 16 spectrum values per thread (rows 16w..16w+15 of the tile, lane
+// = k) into an fp32 A tile and sync the warpgroup on barrier bar.
+__device__ __forceinline__ void stage_a(const float (&v)[16], float* tile,
+                                        int warp, int lane, int bar) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) tile[(warp * 16 + j) * A_LD + lane] = v[j];
+  asm volatile("bar.sync %0, 128;" ::"r"(bar) : "memory");
+}
+
+// This thread's A fragments of one k-step, split in TF32. In the wgmma
+// fragment of an 8-deep slice kk, thread (lane) holds rows g = lane/4 and
+// g + 8 of its warp's 16 at k = lane%4 and lane%4 + 4; the staged tile
+// holds them at 8 consecutive floats, spectrum offset 8 (lane%4) + 2 kk + h
+// for k = lane%4 + 4h (W's columns are permuted to match on the host).
+__device__ __forceinline__ void load_frags(const float* tile, int warp,
+                                           int lane, uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+  const float* r0 = tile + (warp * 16 + lane / 4) * A_LD + (lane % 4) * 8;
+  const float* r1 = r0 + 8 * A_LD;
+  float x[2][8];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float4 u = reinterpret_cast<const float4*>(r0)[q];
+    const float4 v = reinterpret_cast<const float4*>(r1)[q];
+    x[0][4 * q] = u.x, x[0][4 * q + 1] = u.y, x[0][4 * q + 2] = u.z,
+    x[0][4 * q + 3] = u.w;
+    x[1][4 * q] = v.x, x[1][4 * q + 1] = v.y, x[1][4 * q + 2] = v.z,
+    x[1][4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a0 (g, k), a1 (g+8, k), a2, a3 at k+4
+      const float v = x[i & 1][2 * kk + (i >> 1)];
+      const float h = tf32_rna(v);
+      hi[kk][i] = __float_as_uint(h);
+      lo[kk][i] = __float_as_uint(tf32_rna(__fsub_rn(v, h)));
+    }
+}
 
 __global__ void partition_rows(const uint8_t* __restrict__ trans, int R,
                                int* __restrict__ lists,
@@ -51,156 +230,248 @@ __global__ void partition_rows(const uint8_t* __restrict__ trans, int R,
   lists[m * R + slot] = r;
 }
 
-// pass 1: tails[r, j] = sum_k freq[r, k] * DT_mode(r)[k, j], j < 60
-__global__ void tails_kernel(const float* __restrict__ freq, int ld,
-                             const uint8_t* __restrict__ trans, int R,
-                             const float* __restrict__ dtl,
-                             const float* __restrict__ dts,
-                             float* __restrict__ tails) {
-  __shared__ float f[TR][N];
-  const int r0 = blockIdx.x * TR;
-  for (int e = threadIdx.x; e < TR * N; e += blockDim.x) {
-    int i = e / N, k = e - i * N, r = r0 + i;
-    f[i][k] = r < R ? freq[(size_t)r * ld + k] : 0.f;
-  }
-  __syncthreads();
-  const int j = threadIdx.x;
-  if (j >= OVER) return;
-  bool shortm[TR];
-  float acc[TR];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    shortm[i] = r0 + i < R && trans[r0 + i] != 0;
-    acc[i] = 0.f;
-  }
-  for (int k = 0; k < N; ++k) {
-    float dl = dtl[k * OVER + j], ds = dts[k * OVER + j];
-#pragma unroll
-    for (int i = 0; i < TR; ++i) acc[i] = fmaf(f[i][k], shortm[i] ? ds : dl, acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-    if (r0 + i < R) tails[(size_t)(r0 + i) * OVER + j] = acc[i];
-}
-
-// pass 2: y[r] = [freq[r] | tail_in[r]] . [A_mode^T ; C_mode^T]
-__global__ void __launch_bounds__(THREADS)
-product_kernel(const float* __restrict__ freq, int ld,
-               const float* __restrict__ tails,
-               const float* __restrict__ tail0, int L, int R,
-               const int* __restrict__ lists, const int* __restrict__ counts,
-               const float* __restrict__ atl, const float* __restrict__ ats,
-               const float* __restrict__ ctl, const float* __restrict__ cts,
-               float* __restrict__ y) {
+// out[r, n] = sum_k freq[r, k] W_mode[n, k] for the block's 128 rows of one
+// mode's list and 64 columns n; columns < 960 go to y, 960..1019 to tails.
+__global__ void __launch_bounds__(THREADS, 1)
+k1_product(const __grid_constant__ CUtensorMap w_long_hi,
+           const __grid_constant__ CUtensorMap w_long_lo,
+           const __grid_constant__ CUtensorMap w_short_hi,
+           const __grid_constant__ CUtensorMap w_short_lo,
+           const float* __restrict__ freq, int ld, int R,
+           const int* __restrict__ lists, const int* __restrict__ counts,
+           float* __restrict__ y, float* __restrict__ tails) {
   const int mode = blockIdx.z;
   const int cnt = counts[mode];
-  const int m0 = blockIdx.x * BM;
+  const int m0 = blockIdx.x * ROWS;
   if (m0 >= cnt) return;
   const int n0 = blockIdx.y * BN;
-  const float* __restrict__ at = mode ? ats : atl;
-  const float* __restrict__ ct = mode ? cts : ctl;
+  const int nwg = min(WGS, (cnt - m0 + BM - 1) / BM);  // warpgroups with rows
 
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-  __shared__ const float* arow[BM];
-  __shared__ const float* trow[BM];
-  __shared__ int orow[BM];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sb = smem_u32(smem);
+  const uint32_t full0 = sb + OFF_BAR, empty0 = full0 + STAGES * 8;
+  int* rows = reinterpret_cast<int*>(smem + OFF_ROWS);
 
   const int tid = threadIdx.x;
-  if (tid < BM) {
-    int i = m0 + tid;
-    if (i < cnt) {
-      int r = lists[mode * R + i];
-      orow[tid] = r;
-      arow[tid] = freq + (size_t)r * ld;
-      // row r = b*L + l: frame b > 0 takes frame b-1's tail, b = 0 tail0[l]
-      trow[tid] = r >= L ? tails + (size_t)(r - L) * OVER
-                         : tail0 + (size_t)r * OVER;
-    } else {
-      orow[tid] = -1;
-      arow[tid] = nullptr;
-      trow[tid] = nullptr;
+  if (tid < ROWS)  // rows past the list repeat a real row; never stored
+    rows[tid] = lists[mode * R + min(m0 + tid, cnt - 1)];
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, nwg);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int wg = tid / 128;
+  if (wg == WGS) {  // producer warp: one thread keeps the W ring full
+    if (tid == WGS * 128) {
+      const CUtensorMap* hi = mode ? &w_short_hi : &w_long_hi;
+      const CUtensorMap* lo = mode ? &w_short_lo : &w_long_lo;
+      for (int s = 0; s < KSTEPS; ++s) {
+        const int st = s % STAGES;
+        if (s >= STAGES) mbar_wait(empty0 + 8 * st, (s / STAGES - 1) & 1);
+        const uint32_t dst = sb + OFF_B + st * 2 * B_TILE;
+        mbar_expect_tx(full0 + 8 * st, 2 * B_TILE);
+        tma_load(dst, hi, full0 + 8 * st, s * BK, n0);
+        tma_load(dst + B_TILE, lo, full0 + 8 * st, s * BK, n0);
+      }
+    }
+    return;
+  }
+  if (wg >= nwg) return;
 
-  for (int k0 = 0; k0 < KTOT; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      int mi = e / BK, kk = e - mi * BK, k = k0 + kk;
-      float v = 0.f;
-      if (arow[mi] != nullptr && k < KTOT)
-        v = k < N ? arow[mi][k] : trow[mi][k - N];
-      As[kk][mi] = v;
+  // consumer warpgroup: rows 64*wg .. 64*wg+63 of the block
+  const int t = tid % 128, warp = t / 32, lane = t % 32;
+  const int* wrows = rows + wg * BM;
+  float* atile = reinterpret_cast<float*>(smem + OFF_A + wg * 2 * A_TILE);
+
+  // staging: warp w loads rows 16w..16w+15, lane = k within the step
+  const float* src = freq + lane;
+  int roff[16];  // element offset of each row
+#pragma unroll
+  for (int j = 0; j < 16; ++j) roff[j] = wrows[warp * 16 + j] * ld;
+  // pre holds the spectra of the step after the one being staged: loads are
+  // issued a whole step before their values are stored
+  float pre[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) pre[j] = __ldg(src + roff[j]);
+  stage_a(pre, atile, warp, lane, 1 + wg);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) pre[j] = __ldg(src + roff[j] + BK);
+
+  // Each k-step's products go into a fresh partial, added to the fp32 sum
+  // once the step is done: the tensor cores add only 12 products per
+  // partial, and the long sum rounds to nearest here.
+  static_assert(BN == 64, "the wgmma instruction is m64n64k8");
+  float part[32], sum[32];
+  uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) part[i] = sum[i] = 0.f;
+  for (int s = 0; s < KSTEPS; ++s) {
+    const int st = s % STAGES;
+    load_frags(atile + (s & 1) * (A_TILE / 4), warp, lane, ahi, alo);
+    mbar_wait(full0 + 8 * st, (s / STAGES) & 1);
+    const uint32_t b_hi = sb + OFF_B + st * 2 * B_TILE, b_lo = b_hi + B_TILE;
+    acc_fence(part);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    wgmma_tf32<0>(part, ahi[0], sw128_desc(b_hi));
+    wgmma_tf32<1>(part, ahi[0], sw128_desc(b_lo));
+    wgmma_tf32<1>(part, alo[0], sw128_desc(b_hi));
+#pragma unroll
+    for (int kk = 1; kk < BK / 8; ++kk) {  // 32 bytes of k per instruction
+      const uint32_t o = kk * 32;
+      wgmma_tf32<1>(part, ahi[kk], sw128_desc(b_hi + o));
+      wgmma_tf32<1>(part, ahi[kk], sw128_desc(b_lo + o));
+      wgmma_tf32<1>(part, alo[kk], sw128_desc(b_hi + o));
     }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      int kk = e / BN, ni = e - kk * BN, k = k0 + kk;
-      float v = 0.f;
-      if (k < N)
-        v = at[(size_t)k * N + n0 + ni];
-      else if (k < KTOT)
-        v = ct[(size_t)(k - N) * N + n0 + ni];
-      Bs[kk][ni] = v;
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the other A buffer was last read before the previous step's barrier
+    if (s + 1 < KSTEPS)
+      stage_a(pre, atile + ((s + 1) & 1) * (A_TILE / 4), warp, lane, 1 + wg);
+    if (s + 2 < KSTEPS) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) pre[j] = __ldg(src + roff[j] + (s + 2) * BK);
     }
-    __syncthreads();
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    acc_fence(part);
+    reg_fence(ahi);
+    reg_fence(alo);
+    if (t == 0) mbar_arrive(empty0 + 8 * st);  // W stage free
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int i = 0; i < 32; ++i) sum[i] = __fadd_rn(sum[i], part[i]);
   }
 
+  // sum[4c + e]: row 16 warp + lane/4 + 8 (e/2), column 8c + 2 (lane%4) + e%2
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int r = orow[ty * TM + i];
-    if (r < 0) continue;
-    float* out = y + (size_t)r * N + n0 + tx * TN;
+  for (int h = 0; h < 2; ++h) {
+    const int m = warp * 16 + lane / 4 + 8 * h;
+    if (m0 + wg * BM + m >= cnt) continue;
+    const int r = wrows[m];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) out[j] = acc[i][j];
+    for (int c = 0; c < BN / 8; ++c) {
+      const int n = n0 + 8 * c + 2 * (lane % 4);
+      const float2 v =
+          make_float2(sum[4 * c + 2 * h], sum[4 * c + 2 * h + 1]);
+      if (n < N)
+        *reinterpret_cast<float2*>(y + (size_t)r * N + n) = v;
+      else if (n < N + OVER)
+        *reinterpret_cast<float2*>(tails + (size_t)r * OVER + n - N) = v;
+    }
   }
+}
+
+// the C term: y[r, j] += w[119-j] * tail_in[r][j < 60 ? j : 119-j], j < 120;
+// tail_in is frame b-1's new tail (row r-L), or tail0[l] for frame 0
+__global__ void k1_overlap(const float* __restrict__ window,
+                           const float* __restrict__ tails,
+                           const float* __restrict__ tail0, int L, int R,
+                           float* __restrict__ y) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= R * 2 * OVER) return;
+  const int r = e / (2 * OVER), j = e - r * (2 * OVER);
+  const float* tin =
+      r >= L ? tails + (size_t)(r - L) * OVER : tail0 + (size_t)r * OVER;
+  float* out = y + (size_t)r * N + j;
+  *out = __fadd_rn(*out, __fmul_rn(window[2 * OVER - 1 - j],
+                                   tin[j < OVER ? j : 2 * OVER - 1 - j]));
+}
+
+// --- tensor maps of the W buffers ------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? (EncodeTiled)p
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map depends only on the buffer's address (all four have one shape), so
+// a small cache keyed on the address is always right.
+bool weight_map(const void* w, CUtensorMap* out) {
+  static std::mutex mu;
+  static const void* keys[8] = {};
+  static CUtensorMap maps[8];
+  static int next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < 8; ++i)
+    if (keys[i] == w) {
+      *out = maps[i];
+      return true;
+    }
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {N, NOUT};
+  const cuuint64_t strides[1] = {N * sizeof(float)};
+  const cuuint32_t box[2] = {BK, BN};
+  const cuuint32_t elem[2] = {1, 1};
+  CUtensorMap m;
+  if (enc(&m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(w), dims,
+          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  keys[next] = w;
+  maps[next] = m;
+  next = (next + 1) % 8;
+  *out = m;
+  return true;
 }
 
 }  // namespace
 
 // freq: [B*L rows] of >= 960 floats, row stride ld (the packed spectra
 // buffer is read in place); trans: [B*L] uint8; tail0: [L, 60];
-// at*/ct*/dt*: [960,960] / [60,960] / [960,60] fused constants (k-major);
-// y: [B*L, 960]; tails: [B*L, 60] (row (B-1)*L+l is lane l's new tail);
-// lists: int[2*B*L], counts: int[2] scratch.
+// w_*: [1024, 960] split-TF32 product matrices (16-byte aligned);
+// window: [120]; y: [B*L, 960]; tails: [B*L, 60] (row (B-1)*L+l is lane
+// l's new tail); lists: int[2*B*L], counts: int[2] scratch.
 extern "C" int iamf_k1_imdct(const void* freq, int ld, const void* trans,
                              const void* tail0, int B, int L,
-                             const void* atl, const void* ats,
-                             const void* ctl, const void* cts,
-                             const void* dtl, const void* dts, void* y,
-                             void* tails, void* lists, void* counts,
-                             void* stream) {
+                             const void* w_long_hi, const void* w_long_lo,
+                             const void* w_short_hi, const void* w_short_lo,
+                             const void* window, void* y, void* tails,
+                             void* lists, void* counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * L;
+  CUtensorMap maps[4];
+  const void* ws[4] = {w_long_hi, w_long_lo, w_short_hi, w_short_lo};
+  for (int i = 0; i < 4; ++i)
+    if (!weight_map(ws[i], &maps[i])) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaMemsetAsync(counts, 0, 2 * sizeof(int), s);
   if (e != cudaSuccess) return (int)e;
   partition_rows<<<(R + 255) / 256, 256, 0, s>>>(
       (const uint8_t*)trans, R, (int*)lists, (int*)counts);
-  tails_kernel<<<(R + TR - 1) / TR, 64, 0, s>>>(
-      (const float*)freq, ld, (const uint8_t*)trans, R, (const float*)dtl,
-      (const float*)dts, (float*)tails);
-  dim3 grid((R + BM - 1) / BM, N / BN, 2);
-  product_kernel<<<grid, THREADS, 0, s>>>(
-      (const float*)freq, ld, (const float*)tails, (const float*)tail0, L, R,
-      (const int*)lists, (const int*)counts, (const float*)atl,
-      (const float*)ats, (const float*)ctl, (const float*)cts, (float*)y);
+  e = cudaFuncSetAttribute(k1_product,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((R + ROWS - 1) / ROWS, NOUT / BN, 2);
+  k1_product<<<grid, THREADS, SMEM_BYTES, s>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)freq, ld, R,
+      (const int*)lists, (const int*)counts, (float*)y, (float*)tails);
+  k1_overlap<<<(R * 2 * OVER + 255) / 256, 256, 0, s>>>(
+      (const float*)window, (const float*)tails, (const float*)tail0, L, R,
+      (float*)y);
   return (int)cudaGetLastError();
 }

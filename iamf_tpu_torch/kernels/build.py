@@ -9,9 +9,11 @@ so an edited source rebuilds and an unchanged one is reused.
 Every C entry takes the current CUDA stream as its last argument,
 launches on it, allocates nothing and returns ``cudaGetLastError()``;
 ``Kernel.__call__`` passes tensors as device pointers, appends the stream
-and raises when the error is non-zero. ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into an
-FMA, so the comb and limiter recurrences round exactly as the reference's
-separate multiply and add do; the IMDCT product asks for its FMAs by name.
+and raises when the error is non-zero. ``--fmad=false`` keeps nvcc from
+contracting ``a*b + c`` into an FMA, so the comb and limiter recurrences
+round exactly as the reference's separate multiply and add do; K1 names
+its roundings (``__fadd_rn``, ``__fmul_rn``), and its tensor-core
+``wgmma`` is not affected.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ them on a GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Bounds: K1 0.25 at s16 scale; K2 1 s16 LSB (sequential vs blocked
+Bounds: K1 0.25 at s16 scale (split-TF32 tensor-core product against
+the twin's fp32 torch.matmul); K2 1 s16 LSB (sequential vs blocked
 de-emphasis); K3 1 LSB; the Opus sample decode 1 LSB against the golden.
 """
 
@@ -30,20 +31,38 @@ def dev():
     return torch.device("cuda")
 
 
-def test_k1_matches_plain(dev):
-    rng = np.random.RandomState(0)
-    B, L = 9, 12
-    freq = torch.from_numpy(rng.randn(B, L, 973).astype(np.float32) * 1000)
-    trans = torch.from_numpy(rng.rand(B, L) < 0.4)
-    tail0 = torch.from_numpy(rng.randn(L, 60).astype(np.float32) * 1024)
-    mats = imdct.FusedMats()
-    # the packed [B, L, 973] buffer is read in place (row stride 973)
-    y, t = imdct.imdct_overlap(mats.to(dev), freq.to(dev)[..., :960],
-                               trans.to(dev), tail0.to(dev))
-    y_p, t_p = imdct.imdct_overlap(imdct.FusedMats(), freq[..., :960],
-                                   trans, tail0)
-    assert (y.cpu() - y_p).abs().max() < 0.25
-    assert (t.cpu() - t_p).abs().max() < 0.25
+K1_PATTERNS = {
+    "all-long": lambda rng, B, L: np.zeros((B, L), bool),
+    "all-short": lambda rng, B, L: np.ones((B, L), bool),
+    "mixed": lambda rng, B, L: rng.rand(B, L) < 0.4,
+}
+
+
+@pytest.mark.parametrize("layout", ["packed973", "contiguous960"])
+@pytest.mark.parametrize("pattern", sorted(K1_PATTERNS))
+@pytest.mark.parametrize("B,L", [(1, 12), (8, 12), (128, 12), (1, 1)])
+def test_k1_matches_plain(dev, B, L, pattern, layout):
+    rng = np.random.RandomState(B * 100 + L)
+    width = 973 if layout == "packed973" else 960
+    mats_d, mats_c = imdct.FusedMats().to(dev), imdct.FusedMats()
+    tail_d = tail_c = torch.from_numpy(
+        rng.randn(L, 60).astype(np.float32) * 1024)
+    tail_d = tail_d.to(dev)
+    # two calls, the tail chained from the first into the second
+    for _ in range(2):
+        buf = torch.from_numpy(
+            rng.randn(B, L, width).astype(np.float32) * 1000)
+        trans = torch.from_numpy(K1_PATTERNS[pattern](rng, B, L))
+        # the packed [B, L, 973] buffer is read in place (row stride 973)
+        freq_d = buf.to(dev)[..., :960]
+        launches = imdct.K1.launches
+        y, tail_d = imdct.imdct_overlap(mats_d, freq_d, trans.to(dev), tail_d)
+        assert imdct.K1.launches == launches + 1
+        y_p, tail_c = imdct.imdct_overlap(mats_c, buf[..., :960], trans,
+                                          tail_c)
+        assert y.shape == (B, L, 960) and tail_d.shape == (L, 60)
+        assert (y.cpu() - y_p).abs().max() < 0.25
+        assert (tail_d.cpu() - tail_c).abs().max() < 0.25
 
 
 def test_k2_matches_plain(dev):

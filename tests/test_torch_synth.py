@@ -103,3 +103,11 @@ def test_unported_operating_points_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         synth.synthesize_packed(synth.CeltSynth(), buf,
                                 synth.init_carry(2, "cpu"))
+
+
+def test_celt_constants_built_once_per_device():
+    """Decoders on one device share the read-only CELT constants."""
+    cpu = torch.device("cpu")
+    a, b = synth.celt_synth(cpu), synth.celt_synth(cpu)
+    assert a is b and a.mats.w_long_hi.device == cpu
+    assert torch.equal(a.mats.atl, synth.CeltSynth().mats.atl)
