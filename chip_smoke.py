@@ -16,7 +16,22 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      with the kernels' launch counts from that run;
   4. PCM at the bench's size: 30 s of 7.1.4 PCM -> sound system J at
      batch_frames=128, and a short loud stream that engages the limiter,
-     each against this package's own CPU run; realtime factors.
+     each against this package's own CPU run; realtime factors;
+  5. kernels of the output paths: K8 (HRTF convolution) at B=128 and B=3
+     with 12- and 10-channel beds and a live overlap carry, K10 (resampler)
+     over 30 s of 12 channels at 44.1 kHz and on short 16/32/96 kHz inputs,
+     and K3 over the whole resampled stream, against their plain twins,
+     with times per call (CUDA events) and device times (torch.profiler);
+  6. binaural at full width: 30 s of 7.1.4 PCM with headphones rendering
+     mode 1 (M2B, 12-channel bed) at batch_frames=128, limiter on, against
+     the CPU run, with its realtime factor, K8's launches and a profiler
+     trace; short H2B (FOA), two-element and mode-0 (matrix, no K8) runs;
+  7. resampled at full width: 30 s of 7.1.4 PCM at 44.1 kHz -> sound
+     system J at batch_frames=128, limiter on, likewise (K10 and K3); short
+     5.1 runs with normalization, limiter on and off.
+Every kernel's launch count in the kernels line comes from the run of the
+path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
+resampled one), with the counts set to 0 just before that run.
 The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without that line; so does a machine without a
 visible CUDA device.
@@ -363,11 +378,229 @@ def pcm_phase(dev, tag):
     check(28000 <= peak < 29300, f"limiter did not engage: peak {peak}")
 
 
+# --- phase 5: the output paths' kernels --------------------------------------
+
+def _twin_times(tag, name, fast, plain, reps=20, plain_reps=20):
+    ms = cuda_ms(fast, reps=reps)
+    plain_ms = cuda_ms(plain, reps=plain_reps, warm=1)
+    dev_ms, _ = device_ms(fast, reps=reps)
+    dev_plain, _ = device_ms(plain, reps=plain_reps)
+    print(f"{name} time {ms:.4f} ms per call, plain twin {plain_ms:.4f} ms; "
+          f"device time per call {dev_ms:.4f} ms, twin {dev_plain:.4f} ms "
+          f"{tag}")
+    return ms, plain_ms
+
+
+def k8_phase(dev, tag):
+    import vectors
+    from iamf_tpu_torch.dsp import binaural
+
+    L = vectors.ChannelLayout
+    row = dict(name="k8_hrtf_conv", max_abs_err=0.0)
+    for C, layout in ((12, L.L714), (10, L.L712)):
+        bank = binaural.hrir_bank(layout)
+        for B in (B_MAIN, 3):
+            rng = np.random.RandomState(C * 1000 + B)
+            h = binaural.hrir_for_batch(bank, B, FRAME, dev)
+            x = torch.from_numpy((rng.randn(C, B * FRAME) * 0.3).astype(
+                np.float32)).to(dev)
+            ov = torch.from_numpy((rng.randn(2, 255) * 0.1).astype(
+                np.float32)).to(dev)
+            y, o = binaural.hrtf_conv_cuda(h, x, ov)
+            y_p, o_p = binaural.hrtf_conv_plain(h, x, ov)
+            torch.cuda.synchronize()
+            err = max(float((y - y_p).abs().max()),
+                      float((o - o_p).abs().max()))
+            print(f"K8 hrtf conv [C={C}, B={B}]: max|diff| {err:.3e} "
+                  "(bound 1e-4, unit scale)")
+            check(err <= 1e-4, f"K8 disagrees with its plain twin: {err}")
+            ms, plain = _twin_times(
+                tag, f"K8 [C={C}, B={B}]",
+                lambda: binaural.hrtf_conv_cuda(h, x, ov),
+                lambda: binaural.hrtf_conv_plain(h, x, ov))
+            gfma = 2 * C * 256 * B * FRAME / 1e9
+            print(f"K8 [C={C}, B={B}]: {gfma / ms:.2f} T FMA/s per call")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if (C, B) == (LANES, B_MAIN):
+                row.update(ms=ms, plain_ms=plain)
+    return row
+
+
+def k10_k3_phase(dev, tag):
+    from iamf_tpu_torch.dsp import limiter, resample
+
+    row = dict(name="k10_resample", max_abs_err=0.0)
+    for rate, secs in ((44100, 30.0), (16000, 0.5), (32000, 0.5),
+                       (96000, 0.5)):
+        rng = np.random.RandomState(rate % 1009)
+        n_in = int(rate * secs)
+        x = torch.from_numpy((rng.randn(LANES, n_in) * 0.3).astype(
+            np.float32)).to(dev)
+        plan = resample.ResamplePlan(rate, 48000, device=dev)
+        y = resample.resample_cuda(plan, x)
+        y_p = resample.resample_plain(plan, x)
+        torch.cuda.synchronize()
+        err = float((y - y_p).abs().max())
+        print(f"K10 resample {rate} -> 48000 [{LANES}, {n_in}] -> "
+              f"{y.shape[1]} (N={plan.N}): max|diff| {err:.3e} "
+              "(bound 1e-5)")
+        check(err <= 1e-5, f"K10 disagrees with its plain twin: {err}")
+        main = rate == 44100
+        ms, plain = _twin_times(
+            tag, f"K10 [{rate}, {secs} s]",
+            lambda: resample.resample_cuda(plan, x),
+            lambda: resample.resample_plain(plan, x),
+            plain_reps=5 if main else 20)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if main:
+            row.update(ms=ms, plain_ms=plain)
+
+    # K3 over a whole resampled stream, as the resample tail calls it:
+    # 30 s at 48 kHz plus the delay_size drain, one call; a sine bed with a
+    # +4 dB burst of 1 s (attack, then a 200 ms release)
+    n = 48000 * 30
+    xs = torch.from_numpy(np.concatenate(
+        [_loud_planar(n, LANES, n // 2, n // 2 + 48000),
+         np.zeros((LANES, 240), np.float32)], axis=1))
+    cfg = limiter.LimiterConfig(channels=LANES)
+    x_d = xs.to(dev)
+    st = limiter.init_state(cfg, dev)
+    _, q = limiter.limit_quantize_cuda(cfg, st, x_d, 16)
+    t = time.perf_counter()
+    _, q_p = limiter.limit_quantize(cfg, limiter.init_state(cfg, "cpu"),
+                                    xs, 16, FRAME)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = int((q.cpu().to(torch.int32) - q_p.to(torch.int32)).abs().max())
+    print(f"K3 over a 30 s stream [{LANES}, {xs.shape[1]}] with a +4 dB "
+          f"burst: int16 max|diff| {err} (bound 1)")
+    check(err <= 1, f"K3 on the whole stream: {err} LSB")
+    ms = cuda_ms(lambda: limiter.limit_quantize_cuda(cfg, st, x_d, 16),
+                 reps=5, warm=1)
+    dev_ms, per = device_ms(
+        lambda: limiter.limit_quantize_cuda(cfg, st, x_d, 16), reps=5)
+    walk = sum(v for k, v in per.items() if "gain_walk" in k)
+    print(f"K3 [{LANES}, {xs.shape[1]}] time {ms:.4f} ms per call, device "
+          f"{dev_ms:.4f} ms (gain walk {walk:.4f} ms); plain twin on the "
+          f"host CPU {plain_ms:.1f} ms {tag}")
+    return row
+
+
+# --- phases 6 / 7: the binaural and resampled decode paths --------------------
+
+def trace_decode(fn, label):
+    """One decode under torch.profiler: wall, device time (every kernel,
+    copy and memset), busy share, and the largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # device activity only: a CPU op's device time repeats its kernels'
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    per = sorted(((ev.self_device_time_total / 1e3, ev.key)
+                  for ev in prof.key_averages()
+                  if ev.self_device_time_total > 0), reverse=True)
+    busy = sum(v for v, _ in per)
+    top = "; ".join(f"{k[:48]} {v:.3f}" for v, k in per[:8])
+    print(f"{label} trace: wall {wall:.1f} ms under the profiler, device "
+          f"{busy:.2f} ms, busy {100 * busy / wall:.1f} %; top (ms): {top}")
+
+
+def decode_path(dev, tag, label, data, kw, kernels, must, must_not=()):
+    """Decode `data` on the card (warm-up, a counted run, 5 timed runs, a
+    traced run) and on the CPU; <= 1 LSB, same shape. Returns the counted
+    run's launches."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+
+    def run(device):
+        return BatchedStreamDecoder(data, device=device, **kw).decode_all()
+
+    run(dev)  # warm-up
+    for k in kernels:
+        k.reset()
+    got = run(dev)
+    launches = {k.symbol: k.launches for k in kernels}
+    plain = {k.symbol: k.plain_on_cuda for k in kernels}
+    want = run("cpu")
+    d = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+    secs = got.shape[0] / 48000.0
+    print(f"{label}: shape {got.shape}, max|diff| vs CPU run {d} LSB, peak "
+          f"{int(np.abs(want.astype(np.int32)).max())}; launches {launches}; "
+          f"plain twins on CUDA {plain}")
+    check(got.shape == want.shape and d <= 1, f"{label}: {d} LSB")
+    check(all(launches[k.symbol] > 0 for k in must),
+          f"{label}: a kernel of the path did not launch: {launches}")
+    check(all(launches[k.symbol] == 0 for k in must_not),
+          f"{label}: an off-path kernel launched: {launches}")
+    check(not any(plain.values()), f"{label}: a plain twin ran on CUDA")
+    if secs >= 10:
+        walls = timed(lambda: run(dev), 5)
+        print(f"{label} realtime factor {secs / np.median(walls):.2f}x "
+              f"(median of {len(walls)}; {secs:.3f} s audio in "
+              f"{_ms(walls)} ms wall, batch_frames="
+              f"{kw['batch_frames']}) {tag}")
+        trace_decode(lambda: run(dev), label)
+    return launches
+
+
+def binaural_phase(dev, tag, kernels):
+    import vectors
+    from iamf_tpu_torch.dsp.binaural import K8
+    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.dsp.resample import K10
+
+    L = vectors.ChannelLayout
+    stream, _ = vectors.build_pcm_layout_stream(L.L714, n_frames=1500,
+                                                amp=0.5, hrm=1)
+    launches = decode_path(
+        dev, tag, "binaural 7.1.4 M2B 30 s", stream,
+        dict(binaural=True, batch_frames=B_MAIN), kernels, (K8, K3), (K10,))
+    short = {
+        "binaural FOA H2B": (vectors.build_ambisonics_pcm_stream(
+            order=1, n_frames=40, target_layouts=(0,), hrm=1)[0], (K8,), ()),
+        "binaural two elements M2B + H2B": (vectors.build_two_element_stream(
+            n_frames=40, gain2_q78=-(3 << 8), hrm=1)[0], (K8,), ()),
+        "binaural 5.1 mode 0 (matrix)": (vectors.build_pcm_51_stream(
+            n_frames=40)[0], (K3,), (K8,)),
+    }
+    for label, (data, must, must_not) in short.items():
+        decode_path(dev, tag, label, data,
+                    dict(binaural=True, batch_frames=16), kernels, must,
+                    must_not)
+    return launches
+
+
+def resample_phase(dev, tag, kernels):
+    import vectors
+    from iamf_tpu_torch.dsp.binaural import K8
+    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.dsp.resample import K10
+
+    L = vectors.ChannelLayout
+    stream, _ = vectors.build_pcm_layout_stream(
+        L.L714, n_frames=1378, amp=0.5, rate=44100)
+    launches = decode_path(
+        dev, tag, "pcm 7.1.4 44.1 kHz 30 s -> ssJ", stream,
+        dict(sound_system=9, batch_frames=B_MAIN), kernels, (K10, K3), (K8,))
+    data = vectors.build_pcm_51_stream(n_frames=40, rate=44100)[0]
+    decode_path(dev, tag, "pcm 5.1 44.1 kHz, normalization -10 dB", data,
+                dict(sound_system=1, batch_frames=16,
+                     normalization_db=-10.0), kernels, (K10, K3))
+    decode_path(dev, tag, "pcm 5.1 44.1 kHz, no limiter", data,
+                dict(sound_system=1, batch_frames=16, limiter=False),
+                kernels, (K10,), (K3,))
+    return launches
+
+
 def main() -> int:
     from iamf_tpu_torch import require_cuda
     from iamf_tpu_torch.codecs.opus.imdct import K1
     from iamf_tpu_torch.codecs.opus.synth import K2
+    from iamf_tpu_torch.dsp.binaural import K8
     from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.dsp.resample import K10
     from iamf_tpu_torch.kernels import build as kbuild
 
     dev = require_cuda()
@@ -381,9 +614,12 @@ def main() -> int:
           f"{os.path.relpath(path, ROOT)}")
 
     rows = [k1_phase(dev, tag, path), k2_phase(dev, tag), k3_phase(dev, tag)]
-    kernels = (K1, K2, K3)
-    launches = opus_phase(dev, tag, kernels)
+    kernels = (K1, K2, K3, K8, K10)
+    launches = opus_phase(dev, tag, (K1, K2, K3))
     pcm_phase(dev, tag)
+    rows += [k8_phase(dev, tag), k10_k3_phase(dev, tag)]
+    launches[K8.symbol] = binaural_phase(dev, tag, kernels)[K8.symbol]
+    launches[K10.symbol] = resample_phase(dev, tag, kernels)[K10.symbol]
 
     meta = {
         "k1_imdct_tdac": ("iamf_tpu_torch/csrc/imdct.cu",
@@ -392,6 +628,10 @@ def main() -> int:
                                "iamf_tpu/codecs/opus/tpu_synth.py:208", K2),
         "k3_limiter_quantize": ("iamf_tpu_torch/csrc/limiter.cu",
                                 "iamf_tpu/core/pipeline.py:336", K3),
+        "k8_hrtf_conv": ("iamf_tpu_torch/csrc/hrtf_conv.cu",
+                         "iamf_tpu/core/pipeline.py:267", K8),
+        "k10_resample": ("iamf_tpu_torch/csrc/resample.cu",
+                         "iamf_tpu/dsp/resample.py:248", K10),
     }
     table = []
     for r in rows:

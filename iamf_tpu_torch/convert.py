@@ -3,8 +3,9 @@ carries, taken as numpy arrays, turned into this package's tensors on a
 given device, so both packages can start a batch from identical state.
 
 - ``stream_params``: the dict from iamf_tpu.core.pipeline.put_stream_params
+  (with the HRIR spectra ``hrtf_H`` that the JAX decoder's _HostPlan adds)
 - ``pipe_carry``: iamf_tpu.core.pipeline.init_carry / decode_frames carry
-  (limiter state, ``splice``, ``pos``)
+  (limiter state, ``splice``, ``pos``, the binaural overlap ``hrtf``)
 - ``synth_carry``: iamf_tpu.codecs.opus.tpu_synth.SynthCarry
 - ``pipeline_config``: iamf_tpu.core.pipeline.PipelineConfig
 
@@ -19,6 +20,7 @@ import torch
 
 from .codecs.opus.synth import SynthCarry
 from .core.pipeline import ElementSpec, PipelineConfig
+from .dsp.binaural import Hrir, batch_seg_plan
 from .dsp.demix import DemixSpec
 from .dsp.limiter import LimiterConfig
 
@@ -44,13 +46,27 @@ def pipeline_config(cfg) -> PipelineConfig:
     return PipelineConfig(**d)
 
 
-def stream_params(params: dict, device) -> dict:
+def stream_params(params: dict, device, cfg=None) -> dict:
     """put_stream_params pytree -> core/pipeline.stream_params layout.
-    Rows past the padded length are junk in both packages and never read."""
+    Rows past the padded length are junk in both packages and never read.
+    The binaural spectra hrtf_H {i: [2 (re/im), 2, C, F]} become
+    binaural.Hrir entries: the spectra as they are, and the time-domain
+    bank irfft(...)[..., :taps] at the segment plan of `cfg` (this
+    package's or the JAX PipelineConfig, needed only with hrtf_H)."""
     out = {k: [_t(a, device, np.float32) for a in params[k]]
            for k in ("factors", "rg", "mats", "elem_gain")}
     out["mat_idx"] = [_t(a, device, np.int64) for a in params["mat_idx"]]
     out["out_gain"] = _t(params["out_gain"], device, np.float32)
+    out["hrir"] = {}
+    for i, hri in params.get("hrtf_H", {}).items():
+        hri = np.asarray(hri)
+        spec = (hri[0] + 1j * hri[1]).astype(np.complex64)
+        taps = cfg.elements[i].hrtf_taps
+        seg, n, _ = batch_seg_plan(cfg.batch_frames, cfg.frame_size, taps)
+        bank = np.fft.irfft(spec, n=n, axis=2)[..., :taps]
+        out["hrir"][i] = Hrir(bank=_t(bank, device, np.float32),
+                              spec=_t(spec, device, np.complex64),
+                              seg=seg, n_fft=n)
     return out
 
 
@@ -78,7 +94,8 @@ def pipe_carry(carry: dict, device) -> dict:
     if "splice" in carry:
         out["splice"] = _t(carry["splice"], device, np.float32)
     if "hrtf" in carry:
-        raise NotImplementedError("binaural carry (ROADMAP.md §1 item 7)")
+        out["hrtf"] = {i: _t(v, device, np.float32)
+                       for i, v in carry["hrtf"].items()}
     return out
 
 

@@ -11,13 +11,23 @@ overlaps the device work. The device half runs per batch:
     kind "opus" (CELT-960, one frame per unit): CELT synthesis
         (codecs/opus/synth.py: K1 IMDCT+TDAC, K2 comb+de-emphasis+s16)
     kind "raw"  (PCM and FLAC, unpacked on the host): passthrough
-    -> core/pipeline.decode_frames (demix, render, gains, mix, head trim,
-       K3 limiter + quantize)
+    -> core/pipeline.decode_frames (demix, render, K8 HRTF convolution for
+       binaural elements, gains, mix, head trim, K3 limiter + quantize)
+
+binaural=True renders to two ears: channel-based elements with
+headphones_rendering_mode 1 convolve their channel bed with the layout's
+HRIR bank (M2B), scene-based ones first render to a 7.1.2 virtual bed
+(H2B); with mode 0 the M2M/H2M matrix to the binaural layout is used.
+
+A stream not at 48 kHz takes the resample tail: the pipeline emits the
+float mix (no device limiter, no head trim), the batches stay on the device
+and are joined, K10 resamples the trimmed stream to 48 kHz, then the
+normalization gain, the limiter (K3, one call over the stream and its
+drain) or plain quantization, and one copy to the host.
 
 Not ported yet, and raising NotImplementedError: other Opus operating
-points, SILK and hybrid included (ROADMAP.md §1 item 5), AAC (item 6),
-binaural (item 7), resampling (item 8) and mid-stream reconfigure segments
-(item 10).
+points, SILK and hybrid included (ROADMAP.md §1 item 5), AAC (item 6) and
+mid-stream reconfigure segments (item 10).
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import torch
 
 from iamf_tpu.codecs.base import open_decoder
 from iamf_tpu.constants import (
-    AmbisonicsMode, ElementType, LayoutType, SoundSystem,
+    AmbisonicsMode, ChannelLayout, ElementType, LayoutType, SoundSystem,
     db_to_linear, q78_to_db,
 )
 from iamf_tpu.core.database import Database, codec_config_sampling_rate
@@ -41,8 +51,11 @@ from iamf_tpu.obu import parser
 from ..codecs.opus import synth as opus_synth
 from ..codecs.opus.decoder import decode_spectrum_batch
 from ..device import resolve_device
+from ..dsp.binaural import hrir_bank
 from ..dsp.demix import DemixSpec
-from ..dsp.limiter import LimiterConfig
+from ..dsp.limiter import LimiterConfig, init_state, limit_quantize
+from ..dsp.quantize import quantize_interleave
+from ..dsp.resample import ResamplePlan, resample_stream
 from . import timeline
 from .pipeline import (ElementSpec, PipelineConfig, decode_frames, init_carry,
                        stream_params)
@@ -63,6 +76,8 @@ class _ElemCtx:
     raw_input: bool
     opus: bool
     gain: float  # element default mix gain (linear)
+    hrtf_bank: object = None  # np.ndarray [2, n_bed, taps] | None: the HRIRs
+    #   of a binaural (M2B/H2B) element; render_mat then yields the bed
 
 
 def fused_decode(cfg: PipelineConfig, kinds: tuple, synth, carry: dict,
@@ -99,7 +114,8 @@ class _HostPlan:
         self.n_batches = -(-n // B)
         # +1 batch of neutral padding so the limiter drain runs past the end
         self.stream_params = stream_params(
-            dec.cfg, dec.params, (self.n_batches + 1) * B, dev)
+            dec.cfg, dec.params, (self.n_batches + 1) * B, dev,
+            hrtf_banks=[e.hrtf_bank for e in dec.elems])
         self.elem_packets = []
         self.elem_all_x = []
         syn_carry = []
@@ -193,14 +209,14 @@ class BatchedStreamDecoder:
                  binaural: bool = False,
                  mix_presentation_id: int | None = None, *, device):
         self.device = resolve_device(device)
-        if binaural:
-            raise NotImplementedError(
-                "binaural rendering is not ported yet (ROADMAP.md §1 item 7)")
         self.bits = bits
         self.batch_frames = batch_frames
         self.db = Database()
-        self.layout = OutputLayout(
-            type=LayoutType.SS_CONVENTION, sound_system=sound_system)
+        if binaural:
+            self.layout = OutputLayout(type=LayoutType.BINAURAL)
+        else:
+            self.layout = OutputLayout(
+                type=LayoutType.SS_CONVENTION, sound_system=sound_system)
 
         off = parser.find_sequence_header(data)
         if off < 0:
@@ -243,12 +259,15 @@ class BatchedStreamDecoder:
         self.mix_presentation = mp
         sub = mp.sub_mixes[0]
         out_ch = self.layout.channels
+        # a stream not at 48 kHz is resampled after the mix, and the
+        # limiter runs after the resampler (iamf_resample
+        # IAMF_decoder.c:3223-3248, then loudness :3480, limiter :3487)
         self.stream_rate = int(codec_config_sampling_rate(
             self.db.elements[sub.elements[0].element_id].codec_config))
-        if self.stream_rate != 48000:
-            raise NotImplementedError(
-                f"stream rate {self.stream_rate}: resampling is not ported "
-                "yet (ROADMAP.md §1 item 8)")
+        self.needs_resample = self.stream_rate != 48000
+        device_limiter = limiter and not self.needs_resample
+        self._want_limiter = limiter
+        self._peak_threshold_db = peak_threshold_db
         self.frame_size = None
         self.elems: list[_ElemCtx] = []
         for econf in sub.elements:
@@ -265,6 +284,11 @@ class BatchedStreamDecoder:
             # (IAMF_decoder.c:3480-3484, selection :3030-3059)
             norm_gain = db_to_linear(
                 normalization_db - best_loudness(mp, self.layout))
+        self._norm_gain = 1.0
+        if self.needs_resample:
+            # the reference normalizes after resampling: the gain stays out
+            # of the device out-gain and the resample tail applies it
+            self._norm_gain, norm_gain = norm_gain, 1.0
 
         # temporal-unit events: unit u closes at the max record index among
         # the required substreams' u-th frames; its trims come from the
@@ -307,7 +331,7 @@ class BatchedStreamDecoder:
         self.lead = sum(t[0] for t in self.trims[:nf])
         self.tail = sum(t[1] for t in self.trims[:nf])
         T = self.frame_size
-        head_trim = (self.lead if limiter
+        head_trim = (self.lead if device_limiter
                      and 0 < self.lead <= batch_frames * T else 0)
         if head_trim:
             og = self.params.out_gain
@@ -347,6 +371,8 @@ class BatchedStreamDecoder:
                           else 0),
                     rg_index=ep.rg_index,
                     per_sample_gain=ep.gain_per_sample,
+                    hrtf_taps=(e.hrtf_bank.shape[2]
+                               if e.hrtf_bank is not None else 0),
                 )
                 for e, ep in zip(self.elems, self.params.elements)
             ),
@@ -354,10 +380,11 @@ class BatchedStreamDecoder:
                 channels=out_ch,
                 **({"threshold_db": peak_threshold_db}
                    if peak_threshold_db is not None else {}),
-            ) if limiter else None,
+            ) if device_limiter else None,
             per_sample_out_gain=self.params.out_gain_per_sample,
             batch_frames=batch_frames,
             head_trim=head_trim,
+            emit_float=self.needs_resample,
         )
 
     def _open_element(self, item, econf, sound_system, out_ch) -> _ElemCtx:
@@ -372,6 +399,9 @@ class BatchedStreamDecoder:
             q78_to_db(econf.element_mix_gain.default_mix_gain_q78))
 
         downmix = None
+        hrtf_bank = None
+        binaural_hrtf = (self.layout.type == LayoutType.BINAURAL
+                         and econf.headphones_rendering_mode == 1)
         if stream.scheme == ElementType.CHANNEL_BASED:
             s = stream
             codec = open_decoder(
@@ -388,8 +418,15 @@ class BatchedStreamDecoder:
                 output_gains=(1.0,) * len(order),
             )
             in_layout = s.selected_layout
-            tgt = SS_TO_LAYOUT.get(SoundSystem(sound_system))
-            if (tgt is not None and s.dmx_default_mode >= 0
+            # a downmix target exists only for a loudspeaker layout
+            tgt = (SS_TO_LAYOUT.get(SoundSystem(sound_system))
+                   if self.layout.type == LayoutType.SS_CONVENTION else None)
+            if binaural_hrtf:
+                # M2B: the demixed channel bed convolves with the layout's
+                # HRIR bank
+                render_mat = np.eye(len(order), dtype=np.float32)
+                hrtf_bank = hrir_bank(in_layout, 256, 48000)
+            elif (tgt is not None and s.dmx_default_mode >= 0
                     and can_downmix(in_layout, tgt)):
                 mode = max(s.dmx_default_mode, 0)
                 render_mat = downmix_matrix(
@@ -419,10 +456,18 @@ class BatchedStreamDecoder:
                 for i, m in enumerate(stream.ambisonics_mapping[:n_amb]):
                     if m < lanes:
                         conv[i, m] = 1.0
-            full = rdr.h2m_full_matrix(
-                rdr.hoa_order_for_channels(n_amb), self.layout.render_id,
-                out_ch, self.layout.samsung_tv)  # [out, n_amb]
-            render_mat = (full @ conv).astype(np.float32)  # [out, lanes]
+            hoa_order = rdr.hoa_order_for_channels(n_amb)
+            if binaural_hrtf:
+                # H2B: HOA -> 7.1.2 virtual speaker bed -> HRTF conv
+                virt = rdr.h2m_full_matrix(
+                    hoa_order, 0x712, 10, self.layout.samsung_tv)
+                render_mat = (virt @ conv).astype(np.float32)  # [10, lanes]
+                hrtf_bank = hrir_bank(ChannelLayout.L712, 256, 48000)
+            else:
+                full = rdr.h2m_full_matrix(
+                    hoa_order, self.layout.render_id, out_ch,
+                    self.layout.samsung_tv)  # [out, n_amb]
+                render_mat = (full @ conv).astype(np.float32)  # [out, lanes]
             demix_spec = None
             n_in = lanes
 
@@ -449,7 +494,7 @@ class BatchedStreamDecoder:
             substream_ids=list(el.substream_ids),
             demix_spec=demix_spec, render_mat=render_mat, downmix=downmix,
             n_in=n_in, input_scale=input_scale, raw_input=raw_input,
-            opus=opus, gain=gain,
+            opus=opus, gain=gain, hrtf_bank=hrtf_bank,
         )
 
     @property
@@ -489,6 +534,47 @@ class BatchedStreamDecoder:
                 z[..., n + col] = opus_synth.MINPERIOD
         return z
 
+    def _resample_tail(self, full, want: int) -> np.ndarray:
+        """Rate-mismatch output stage, on the decoder's device: resample the
+        float mix to 48 kHz (K10; the output includes the latency drain),
+        apply the normalization gain, then limit (K3 over the stream and a
+        delay_size drain of zeros, dropping the look-ahead) and quantize,
+        or quantize alone; one copy to the host at the end. The serial
+        decoder's order: iamf_resample IAMF_decoder.c:3223-3248 -> loudness
+        :3480 -> limiter :3487, flush drain :3250-3301.
+
+        full: [rows, C] float32 mix timeline of every kept call."""
+        x = full[self.lead:self.lead + want].T  # [C, want]
+        C = x.shape[0]
+        rs = ResamplePlan(self.stream_rate, 48000, device=self.device)
+        y = resample_stream(rs, x)
+        if self._norm_gain != 1.0:
+            # the serial path normalizes the resampler's process() outputs
+            # but not its drained latency tail: split at its pre-drain count
+            n_main = -(-(want - rs.input_latency) * rs.den // rs.num)
+            y[:, :n_main] *= float(np.float32(self._norm_gain))
+        if not self._want_limiter:
+            return self._to_host(quantize_interleave(y, self.bits))
+        cfg = LimiterConfig(
+            channels=C,
+            **({"threshold_db": self._peak_threshold_db}
+               if self._peak_threshold_db is not None else {}))
+        # the serial limiter's first call swallows delay_size samples and
+        # its drain pushes delay_size zeros: one call over y ++ zeros with
+        # the first delay_size rows dropped
+        D = cfg.delay_size
+        z = torch.cat([y, y.new_zeros((C, D))], dim=1)
+        _, pcm = limit_quantize(cfg, init_state(cfg, self.device), z,
+                                self.bits, self.frame_size)
+        return self._to_host(pcm[D:])
+
+    def _to_host(self, pcm: torch.Tensor) -> np.ndarray:
+        """One copy to the host, into pinned memory from the card."""
+        cuda = pcm.is_cuda
+        out = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=cuda)
+        out.copy_(pcm)
+        return out.numpy()
+
     def decode_all(self) -> np.ndarray:
         """Decode the stream; returns [samples, out_channels] int PCM."""
         B = self.batch_frames
@@ -499,9 +585,12 @@ class BatchedStreamDecoder:
         carry = plan.carry
         rows = B * T
         cuda = dev.type == "cuda"
+        resample = self.needs_resample
         # the kept calls' PCM lands in one host array; on the card each
-        # batch is copied into pinned memory as soon as it is queued
-        full = torch.empty(
+        # batch is copied into pinned memory as soon as it is queued. A
+        # resampled stream keeps its float batches on the device instead.
+        floats = []
+        full = None if resample else torch.empty(
             ((plan.total_calls - plan.k0) * rows, self.cfg.out_channels),
             dtype=torch.int16 if self.bits == 16 else torch.int32,
             pin_memory=cuda)
@@ -516,17 +605,24 @@ class BatchedStreamDecoder:
                                      for k, b in zip(plan.kinds, bufs)]
                 else:
                     bufs = zero_bufs  # flush: zero input, neutral params
-                carry, pcm = fused_decode(self.cfg, plan.kinds, self.synth,
+                carry, out = fused_decode(self.cfg, plan.kinds, self.synth,
                                           carry, plan.stream_params, bufs)
                 i = call - plan.k0
-                if i >= 0:
-                    full[i * rows:(i + 1) * rows].copy_(pcm, non_blocking=cuda)
-            if cuda:
+                if i < 0:
+                    continue
+                if resample:
+                    floats.append(out)
+                else:
+                    full[i * rows:(i + 1) * rows].copy_(out,
+                                                        non_blocking=cuda)
+            if cuda and not resample:
                 torch.cuda.synchronize(dev)
         finally:
             plan.close()
-        full = full.numpy()
         want = plan.want
+        if resample:
+            return self._resample_tail(torch.cat(floats), want)
+        full = full.numpy()
         if self.cfg.limiter is not None:
             # limiter look-ahead: drop the first delay_size rows; the
             # trailing flush batches pushed zeros through the delay line

@@ -5,16 +5,21 @@ One call decodes a batch of B = cfg.batch_frames frames:
     per element:  demix chains (dsp/demix.py, elementwise, batched over B)
                   -> render matmul (per-frame matrices, offset-split blend)
                   -> element mix gain
+    binaural:     an element with hrtf_taps > 0 renders its virtual-speaker
+                  bed, and K8 (dsp/binaural.py) folds the bed over the whole
+                  batch timeline to two ears, with an overlap carry; its
+                  gain applies after the convolution (render -> binaural ->
+                  gain, as the serial path orders them)
     mix:          sum over elements, then the output gain
     head trim:    pre-limiter splice of the stream's leading trimmed samples
     limiter:      + quantize/interleave: K3 on the card (dsp/limiter.py)
+    emit_float:   (rate-mismatched streams) no limiter, no quantize: the
+                  mixed float32 [B*T, out] goes to the resample tail
+                  (core/batch_decoder.py)
 
 Demix, render and mix are plain PyTorch for now (ROADMAP.md §2: a fused
 kernel only if a profile on the card shows it matters). The limiter is the
 only per-sample recurrence on this path.
-
-Not ported yet: the binaural HRTF branch (ROADMAP.md §1 item 7) and
-``emit_float`` for rate-mismatched streams (item 8); both raise.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..dsp.binaural import hrir_for_batch, hrtf_conv
 from ..dsp.demix import DemixSpec, demix_frame, make_windows
 from ..dsp.limiter import LimiterConfig, init_state, limit_quantize
 from ..dsp.quantize import quantize_interleave
@@ -46,7 +52,9 @@ class ElementSpec:
     #   (demixer_set_frame_offset, demixer.c:537-563)
     rg_index: tuple[int, ...] = ()  # recon-smoothed output-channel indices
     per_sample_gain: bool = False  # elem gain arrives [B, T] instead of [B]
-    hrtf_taps: int = 0  # >0: binaural element (not ported, see module doc)
+    hrtf_taps: int = 0  # >0: binaural element: render_mat yields the
+    #   virtual-speaker bed, folded to 2 ears by K8 (params['hrir'][i],
+    #   carry['hrtf'][i])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,20 +70,13 @@ class PipelineConfig:
     #   (iamf_frame_trim, IAMF_decoder.c:1361-1381): trimmed samples never
     #   drive the limiter envelope. The splice delays output by one batch;
     #   callers discard the first call's output.
-    emit_float: bool = False  # rate-mismatch path (not ported)
+    emit_float: bool = False  # return the mixed float32 [B*T, out]: the
+    #   rate-mismatch path resamples, normalizes, limits and quantizes it
+    #   afterwards. Requires limiter=None.
 
 
-def _check_supported(cfg: PipelineConfig) -> None:
-    if any(es.hrtf_taps for es in cfg.elements):
-        raise NotImplementedError(
-            "binaural HRTF rendering is not ported yet (ROADMAP.md §1 item 7)")
-    if cfg.emit_float:
-        raise NotImplementedError(
-            "float emission for resampled streams is not ported yet "
-            "(ROADMAP.md §1 item 8)")
-
-
-def stream_params(cfg: PipelineConfig, tl, n_padded: int, device) -> dict:
+def stream_params(cfg: PipelineConfig, tl, n_padded: int, device,
+                  hrtf_banks=None) -> dict:
     """The replayed timeline (core/timeline.TimelineParams) as whole-stream
     tensors on `device`, put once per decode. Each per-frame array is padded
     to n_padded frames with neutral values:
@@ -84,7 +85,9 @@ def stream_params(cfg: PipelineConfig, tl, n_padded: int, device) -> dict:
       mats:     list per element of [M, out, n_rendered] float32
       mat_idx:  list per element of [Np, 2] int64 (prev, cur) into mats
       elem_gain: list per element of [Np] (or [Np, T]) float32
-      out_gain: [Np] (or [Np, T]) float32"""
+      out_gain: [Np] (or [Np, T]) float32
+      hrir:     {element index: binaural.Hrir} for binaural elements, from
+                hrtf_banks[i] ([2, C_i, taps] numpy, None for the others)"""
 
     def pad_frames(a, fill):
         if a.shape[0] >= n_padded:
@@ -105,13 +108,16 @@ def stream_params(cfg: PipelineConfig, tl, n_padded: int, device) -> dict:
         params["elem_gain"].append(
             put(pad_frames(ep.gain.astype(np.float32), 1.0)))
     params["out_gain"] = put(pad_frames(tl.out_gain.astype(np.float32), 1.0))
+    params["hrir"] = {
+        i: hrir_for_batch(bank, cfg.batch_frames, cfg.frame_size, device)
+        for i, bank in enumerate(hrtf_banks or ()) if bank is not None}
     return params
 
 
 def init_carry(cfg: PipelineConfig, device) -> dict:
     """{'pos': frame position (host int), 'limiter': limiter state,
-    'splice': [out, B*T] head-trim carry}."""
-    _check_supported(cfg)
+    'splice': [out, B*T] head-trim carry, 'hrtf': {element index: [2,
+    taps-1] overlap} for binaural elements}."""
     carry = {"pos": 0}
     if cfg.limiter is not None:
         carry["limiter"] = init_state(cfg.limiter, device)
@@ -119,11 +125,17 @@ def init_carry(cfg: PipelineConfig, device) -> dict:
         carry["splice"] = torch.zeros(
             (cfg.out_channels, cfg.batch_frames * cfg.frame_size),
             dtype=torch.float32, device=device)
+    if any(es.hrtf_taps for es in cfg.elements):
+        carry["hrtf"] = {
+            i: torch.zeros((2, es.hrtf_taps - 1), dtype=torch.float32,
+                           device=device)
+            for i, es in enumerate(cfg.elements) if es.hrtf_taps}
     return carry
 
 
 def _element_batch(cfg: PipelineConfig, i: int, x, fac, rg, m_prev, m_cur):
-    """Demix + render for ONE element over the batch: [B, out, T]."""
+    """Demix + render for ONE element over the batch: [B, out, T] (the
+    virtual-speaker bed [B, C_i, T] for a binaural element)."""
     es = cfg.elements[i]
     T = cfg.frame_size
     dev = x.device
@@ -168,9 +180,9 @@ def decode_frames(cfg: PipelineConfig, carry: dict, params: dict, xs: list):
     params: whole-stream tensors from ``stream_params``; the batch window
     is sliced at the carry's frame position. xs: list per element of this
     batch's [B, C_in, T] samples (int dtypes are scaled by
-    ElementSpec.input_scale). Returns (carry, pcm int [B*T, out_channels]);
-    pos advances by B."""
-    _check_supported(cfg)
+    ElementSpec.input_scale). Returns (carry, pcm int [B*T, out_channels]),
+    or with cfg.emit_float the float32 mix [B*T, out_channels]; pos
+    advances by B."""
     B = cfg.batch_frames
     T = cfg.frame_size
     C = cfg.out_channels
@@ -180,12 +192,18 @@ def decode_frames(cfg: PipelineConfig, carry: dict, params: dict, xs: list):
         return a[pos:pos + B]
 
     mixed = None
+    hrtf = dict(carry.get("hrtf", {}))
     for i, es in enumerate(cfg.elements):
         mat_idx = sl(params["mat_idx"][i])
         mats = params["mats"][i]
         r = _element_batch(cfg, i, xs[i], sl(params["factors"][i]),
                            sl(params["rg"][i]), mats[mat_idx[:, 0]],
                            mats[mat_idx[:, 1]])
+        if es.hrtf_taps:
+            # the bed over the batch timeline [C_i, B*T] -> 2 ears
+            bed = r.transpose(0, 1).reshape(r.shape[1], B * T)
+            ears, hrtf[i] = hrtf_conv(params["hrir"][i], bed, hrtf[i])
+            r = ears.reshape(2, B, T).transpose(0, 1)
         g = sl(params["elem_gain"][i])
         r = r * g[:, None, :] if es.per_sample_gain else r * g[:, None, None]
         mixed = r if mixed is None else mixed + r
@@ -193,6 +211,8 @@ def decode_frames(cfg: PipelineConfig, carry: dict, params: dict, xs: list):
     mixed = (mixed * og[:, None, :] if cfg.per_sample_out_gain
              else mixed * og[:, None, None])
     carry = dict(carry, pos=pos + B)
+    if hrtf:
+        carry["hrtf"] = hrtf
 
     flat = mixed.transpose(0, 1).reshape(C, B * T)
     if cfg.head_trim:
@@ -202,6 +222,8 @@ def decode_frames(cfg: PipelineConfig, carry: dict, params: dict, xs: list):
         carry = dict(carry, splice=flat)
         flat = seq[:, cfg.head_trim:cfg.head_trim + B * T]
 
+    if cfg.emit_float:
+        return carry, flat.T
     if cfg.limiter is not None:
         lim_state, pcm = limit_quantize(cfg.limiter, carry["limiter"], flat,
                                         cfg.bits, T)

@@ -1,8 +1,8 @@
 """Build and bind the hand-written CUDA kernels (iamf_tpu_torch/csrc/*.cu).
 
-The sources compile with nvcc into ONE shared library with a plain C
-interface, loaded through ctypes: no PyTorch headers, so a build takes
-seconds. The library is built at first use into iamf_tpu_torch/build/
+The sources compile with nvcc, one process per source started together,
+and link into ONE shared library with a plain C interface, loaded through
+ctypes: no PyTorch headers, so a build takes seconds. The library is built at first use into iamf_tpu_torch/build/
 (ignored by git), under a name keyed on a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused.
 
@@ -31,9 +31,9 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # the first two are the target, passed to the link too
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+    "-Xcompiler", "-fPIC", "--fmad=false",
 )
 
 _lib = None
@@ -61,23 +61,42 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> tuple[Path, float]:
-    """Compile csrc/*.cu unless the keyed library exists.
-    Returns (path, seconds spent compiling)."""
+    """Compile csrc/*.cu unless the keyed library exists: one nvcc per
+    source, all started together (the sources share no device code), then
+    one link. Returns (path, seconds spent compiling and linking)."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
+    srcs = sources()
+    objs = [BUILD / f"{stem}.{s.stem}.o" for s in srcs]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+         "-o", str(o), str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        bad = [f"{s.name} ({p.returncode}):\n{log}"
+               for s, p, log in zip(srcs, procs, logs) if p.returncode]
+        if bad:
+            raise RuntimeError("nvcc failed on " + "\n".join(bad))
+        tmp = out.with_name(f"{stem}.tmp.so")
+        r = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *map(str, objs)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
     if verbose:
-        print(r.stdout + r.stderr)
+        print("".join(logs) + r.stdout + r.stderr)
     os.replace(tmp, out)
     return out, secs
 

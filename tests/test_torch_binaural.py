@@ -1,0 +1,192 @@
+"""The binaural (HRTF) path of the PyTorch port vs the JAX package, on the
+CPU: K8's plain twin against the JAX HRTF branch of decode_frames and
+against a float64 direct convolution, and BatchedStreamDecoder(binaural=
+True) against iamf_tpu's.
+
+Bounds: decoded PCM <= 1 s16 LSB (the repo's batched-vs-serial bar); the
+twin against np.convolve <= 1e-4 at unit scale (the JAX package's own
+bound for its FFT convolution, tests/test_binaural.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import vectors
+from iamf_tpu.constants import ChannelLayout
+from iamf_tpu.core import batch_decoder as jbd
+from iamf_tpu.core import pipeline as jpipe
+from iamf_tpu.dsp import render as rdr
+from iamf_tpu.dsp.downmix import downmix_matrix
+from iamf_tpu_torch import convert
+from iamf_tpu_torch.core import pipeline as ppipe
+from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+from iamf_tpu_torch.dsp import binaural
+
+T = 960
+
+STREAMS = {
+    # channel-based 5.1, headphones_rendering_mode 1: M2B, 6-channel bed
+    "m2b_51_hrm1": (lambda: vectors.build_pcm_51_stream(
+        n_frames=7, hrm=1)[0], 3),
+    # FOA, hrm 1: H2B through the 7.1.2 virtual bed (10 channels)
+    "h2b_foa_hrm1": (lambda: vectors.build_ambisonics_pcm_stream(
+        order=1, n_frames=6, target_layouts=(0,), hrm=1)[0], 4),
+    # stereo M2B + FOA H2B in one mix, per-element banks and carries
+    "two_elements_hrm1": (lambda: vectors.build_two_element_stream(
+        n_frames=7, gain2_q78=-(3 << 8), hrm=1)[0], 3),
+    # hrm 0: the M2M matrix to the binaural layout, no convolution
+    "m2m_51_hrm0": (lambda: vectors.build_pcm_51_stream(n_frames=6)[0], 4),
+}
+
+
+def _lsb(a, b):
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_decoder_matches_jax(name):
+    make, bf = STREAMS[name]
+    data = make()
+    want = np.asarray(jbd.BatchedStreamDecoder(
+        data, binaural=True, batch_frames=bf).decode_all())
+    dec = BatchedStreamDecoder(data, binaural=True, batch_frames=bf,
+                               device="cpu")
+    got = dec.decode_all()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.shape[1] == 2 and got.shape[0] > bf * T  # >= 2 batches
+    assert _lsb(got, want) <= 1
+    taps = [es.hrtf_taps for es in dec.cfg.elements]
+    assert all(taps) == (name != "m2m_51_hrm0") and any(taps) == all(taps)
+
+
+def test_binaural_takes_no_downmix():
+    """With a binaural layout the loudspeaker downmix target does not
+    exist: a 5.1 element with hrm 0 renders through the M2M matrix to the
+    binaural layout. An unguarded sound-system lookup would take the 5.1 ->
+    stereo downmix instead, which differs."""
+    data = vectors.build_pcm_51_stream(n_frames=6)[0]
+    dec = BatchedStreamDecoder(data, binaural=True, batch_frames=4,
+                               device="cpu")
+    (e,) = dec.elems
+    assert e.downmix is None and e.hrtf_bank is None
+    want = rdr.m2m_matrix(rdr.LAYER_IDS[ChannelLayout.L510],
+                          rdr.BINAURAL_ID).T
+    assert np.array_equal(e.render_mat, want)
+    stereo = downmix_matrix(ChannelLayout.L510, ChannelLayout.STEREO, 0, 0)
+    assert stereo.shape == want.shape and not np.allclose(stereo, want)
+
+
+def _direct(x, bank, n):
+    """float64 oracle: per-speaker np.convolve summed, first n samples."""
+    out = np.zeros((2, n))
+    for e in range(2):
+        for c in range(x.shape[0]):
+            out[e] += np.convolve(x[c].astype(np.float64),
+                                  bank[e, c].astype(np.float64))[:n]
+    return out
+
+
+@pytest.mark.parametrize("layout,B", [(ChannelLayout.L510, 3),
+                                      (ChannelLayout.L714, 4),
+                                      (ChannelLayout.L712, 8)])
+def test_twin_matches_direct_convolution(layout, B):
+    """Three batches through hrtf_conv (CPU: the plain twin) with the
+    overlap carried, against the whole signal's direct convolution."""
+    bank = binaural.hrir_bank(layout)
+    C = bank.shape[1]
+    hrir = binaural.hrir_for_batch(bank, B, T, "cpu")
+    rng = np.random.RandomState(5)
+    n = 3 * B * T
+    x = (rng.randn(C, n) * 0.3).astype(np.float32)
+    ov = torch.zeros(2, bank.shape[2] - 1)
+    outs = []
+    for b in range(3):
+        xb = torch.from_numpy(x[:, b * B * T:(b + 1) * B * T])
+        y, ov = binaural.hrtf_conv(hrir, xb, ov)
+        outs.append(y.numpy())
+    got = np.concatenate(outs, axis=1)
+    err = np.abs(got - _direct(x, bank, n)).max()
+    assert err < 1e-4, err
+    # the carry is the convolution's spill past the last batch
+    tail = _direct(np.pad(x, ((0, 0), (0, 255))), bank, n + 255)[:, n:]
+    assert np.abs(ov.numpy() - tail).max() < 1e-4
+
+
+@pytest.mark.parametrize("name", ["m2b_51_hrm1", "two_elements_hrm1"])
+def test_decode_frames_hrtf_matches_jax(name):
+    """The HRTF branch of decode_frames, batch by batch: the JAX side runs
+    the first batch alone; its state (a non-zero hrtf overlap carry, the
+    limiter, the HRIR spectra) is carried across with convert, and from
+    then on both chain their own carries across the batch edges."""
+    make, B = STREAMS[name]
+    jd = jbd.BatchedStreamDecoder(make(), binaural=True, batch_frames=B)
+    plan = jbd._HostPlan(jd)
+    plan.close()
+    cfg_j = jd.cfg
+    cfg_p = convert.pipeline_config(cfg_j)
+    params_j = plan.stream_params
+    params_p = convert.stream_params(params_j, "cpu", cfg_p)
+    for i, h in params_p["hrir"].items():
+        # the bank recovered from the JAX spectra is the decoder's bank
+        assert np.abs(h.bank.numpy() - jd.elems[i].hrtf_bank).max() < 1e-6
+    xs_all = [e.codec.decode_batch_raw(
+        [jd.frames_per_substream[s] for s in e.substream_ids], T)[0]
+        for e in jd.elems]
+    nb = -(-jd.n_frames // B)
+    carry_j = jpipe.init_carry(cfg_j)
+    carry_p = None
+    for bi in range(nb + 1):  # the last call is a zero flush
+        xs = []
+        for x in xs_all:
+            x = x[bi * B:(bi + 1) * B]
+            xs.append(np.concatenate(
+                [x, np.zeros((B - len(x),) + x.shape[1:], x.dtype)]))
+        if bi == 1:
+            carry_p = convert.pipe_carry(carry_j, "cpu")
+            for i, ov in carry_p["hrtf"].items():
+                assert float(ov.abs().max()) > 1e-3  # a live overlap
+                assert np.array_equal(ov.numpy(), carry_j["hrtf"][i])
+        carry_j, pcm_j = jpipe.decode_frames(
+            cfg_j, carry_j, params_j, [jnp.asarray(x) for x in xs])
+        if carry_p is None:
+            continue
+        carry_p, pcm_p = ppipe.decode_frames(
+            cfg_p, carry_p, params_p, [torch.from_numpy(x) for x in xs])
+        pcm_j = np.asarray(pcm_j)
+        assert pcm_p.shape == pcm_j.shape == (B * T, 2)
+        assert _lsb(pcm_p.numpy(), pcm_j) <= 1, f"batch {bi}"
+        for i, ov in carry_p["hrtf"].items():
+            err = np.abs(ov.numpy() - np.asarray(carry_j["hrtf"][i])).max()
+            assert err < 1e-4, (bi, i, err)
+
+
+def test_convert_binaural_state():
+    """pipe_carry maps the JAX overlap carry one to one; stream_params
+    keeps the JAX spectra and recovers the time-domain bank."""
+    jd = jbd.BatchedStreamDecoder(STREAMS["two_elements_hrm1"][0](),
+                                  binaural=True, batch_frames=3)
+    plan = jbd._HostPlan(jd)
+    plan.close()
+    rng = np.random.RandomState(3)
+    carry_j = dict(plan.carry["pipe"])
+    carry_j["hrtf"] = {i: jnp.asarray(rng.randn(2, 255).astype(np.float32))
+                       for i in carry_j["hrtf"]}
+    carry_p = convert.pipe_carry(carry_j, "cpu")
+    assert sorted(carry_p["hrtf"]) == [0, 1]
+    for i, v in carry_j["hrtf"].items():
+        assert np.array_equal(carry_p["hrtf"][i].numpy(), np.asarray(v))
+    cfg_p = convert.pipeline_config(jd.cfg)
+    params_p = convert.stream_params(plan.stream_params, "cpu", cfg_p)
+    ours = ppipe.stream_params(cfg_p, jd.params, 3 * 3, "cpu",
+                               [e.hrtf_bank for e in jd.elems])
+    for i, h in params_p["hrir"].items():
+        hri = np.asarray(plan.stream_params["hrtf_H"][i])
+        assert np.array_equal(h.spec.real.numpy(), hri[0])
+        assert np.array_equal(h.spec.imag.numpy(), hri[1])
+        mine = ours["hrir"][i]
+        assert (h.seg, h.n_fft, h.taps) == (mine.seg, mine.n_fft, mine.taps)
+        assert np.abs(h.bank.numpy() - mine.bank.numpy()).max() < 1e-6
+        assert np.abs(h.spec.numpy() - mine.spec.numpy()).max() < 1e-5

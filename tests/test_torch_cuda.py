@@ -7,7 +7,11 @@ them on a GPU machine with
 
 Bounds: K1 0.25 at s16 scale (split-TF32 tensor-core product against
 the twin's fp32 torch.matmul); K2 1 s16 LSB (sequential vs blocked
-de-emphasis); K3 1 LSB; the Opus sample decode 1 LSB against the golden.
+de-emphasis); K3 1 LSB; the Opus sample decode 1 LSB against the golden;
+K8 1e-4 at unit scale (direct-form fp32 sums against the twin's FFT
+convolution); K10 1e-5 (the same 64- or 128-tap fp32 dot products in
+another order); the binaural and 44.1 kHz decodes 1 LSB against the CPU
+run.
 """
 
 import os
@@ -16,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from iamf_tpu.constants import ChannelLayout
 from iamf_tpu_torch.codecs.opus import imdct, synth
-from iamf_tpu_torch.dsp import limiter
+from iamf_tpu_torch.dsp import binaural, limiter, resample
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +118,103 @@ def test_opus_sample_matches_golden(dev):
     assert got.shape == want.shape
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
     assert all(k.launches > 0 and k.plain_on_cuda == 0 for k in kernels)
+
+
+K8_BEDS = {2: ChannelLayout.STEREO, 6: ChannelLayout.L510,
+           10: ChannelLayout.L712, 12: ChannelLayout.L714}
+
+
+@pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("C", sorted(K8_BEDS))
+def test_k8_matches_plain(dev, C, B):
+    rng = np.random.RandomState(C * 1000 + B)
+    T = 960
+    bank = binaural.hrir_bank(K8_BEDS[C])
+    hrir_d = binaural.hrir_for_batch(bank, B, T, dev)
+    hrir_c = binaural.hrir_for_batch(bank, B, T, "cpu")
+    ov_c = torch.from_numpy(rng.randn(2, 255).astype(np.float32) * 0.1)
+    ov_d = ov_c.to(dev)
+    for _ in range(2):  # the overlap chained from one call into the next
+        x = torch.from_numpy((rng.randn(C, B * T) * 0.3).astype(np.float32))
+        launches = binaural.K8.launches
+        y_d, ov_d = binaural.hrtf_conv(hrir_d, x.to(dev), ov_d)
+        assert binaural.K8.launches == launches + 1
+        y_c, ov_c = binaural.hrtf_conv(hrir_c, x, ov_c)
+        assert y_d.shape == (2, B * T) and ov_d.shape == (2, 255)
+        assert (y_d.cpu() - y_c).abs().max() < 1e-4
+        assert (ov_d.cpu() - ov_c).abs().max() < 1e-4
+
+
+@pytest.mark.parametrize("N", [1, 100, 1025])
+def test_k8_short_blocks_match_direct(dev, N):
+    """Blocks shorter than the filter (the new carry then also holds the
+    old one's unconsumed part) against a float64 direct convolution."""
+    rng = np.random.RandomState(N)
+    bank = binaural.hrir_bank(ChannelLayout.L510)
+    hrir = binaural.hrir_for_batch(bank, 1, 960, dev)
+    x = (rng.randn(6, 3 * N) * 0.3).astype(np.float32)
+    ov = torch.zeros(2, 255, device=dev)
+    ys = []
+    for b in range(3):
+        y, ov = binaural.hrtf_conv_cuda(
+            hrir, torch.from_numpy(x[:, b * N:(b + 1) * N]).to(dev), ov)
+        ys.append(y.cpu().numpy())
+    full = np.zeros((2, 3 * N + 255))
+    for e in range(2):
+        for c in range(6):
+            full[e] += np.convolve(x[c].astype(np.float64),
+                                   bank[e, c].astype(np.float64))
+    assert np.abs(np.concatenate(ys, 1) - full[:, :3 * N]).max() < 1e-4
+    assert np.abs(ov.cpu().numpy() - full[:, 3 * N:]).max() < 1e-4
+
+
+@pytest.mark.parametrize("C", [1, 12])
+@pytest.mark.parametrize("rate,n_in", [(44100, 100000), (16000, 30000),
+                                       (32000, 50000), (96000, 100000),
+                                       (44100, 500)])
+def test_k10_matches_plain(dev, rate, n_in, C):
+    rng = np.random.RandomState(rate % 1009 + C)
+    x = (rng.randn(C, n_in) * 0.4).astype(np.float32)
+    x[:, n_in // 2:n_in // 2 + 40] *= 4.0  # some outputs clip
+    plan_d = resample.ResamplePlan(rate, 48000, device=dev)
+    plan_c = resample.ResamplePlan(rate, 48000, device="cpu")
+    launches = resample.K10.launches
+    y_d = resample.resample_stream(plan_d, torch.from_numpy(x).to(dev))
+    assert resample.K10.launches == launches + 1
+    y_c = resample.resample_stream(plan_c, torch.from_numpy(x))
+    assert y_d.shape == y_c.shape == (C, plan_c.n_out(n_in))
+    assert (y_d.cpu() - y_c).abs().max() <= 1e-5
+
+
+OUTPUT_PATHS = {
+    "m2b_714_hrm1": lambda v: (v.build_pcm_layout_stream(
+        ChannelLayout.L714, n_frames=12, hrm=1)[0],
+        dict(binaural=True, batch_frames=4)),
+    "h2b_foa_hrm1": lambda v: (v.build_ambisonics_pcm_stream(
+        order=1, n_frames=9, target_layouts=(0,), hrm=1)[0],
+        dict(binaural=True, batch_frames=4)),
+    "pcm714_441_ssJ": lambda v: (v.build_pcm_layout_stream(
+        ChannelLayout.L714, n_frames=12, rate=44100)[0],
+        dict(sound_system=9, batch_frames=4)),
+    "pcm51_441_norm": lambda v: (v.build_pcm_51_stream(
+        n_frames=9, rate=44100)[0],
+        dict(sound_system=1, batch_frames=4, normalization_db=-10.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OUTPUT_PATHS))
+def test_output_paths_match_cpu(dev, name):
+    import vectors
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+
+    data, kw = OUTPUT_PATHS[name](vectors)
+    kernels = (binaural.K8, resample.K10, limiter.K3)
+    for k in kernels:
+        k.reset()
+    got = BatchedStreamDecoder(data, device=dev, **kw).decode_all()
+    want = BatchedStreamDecoder(data, device="cpu", **kw).decode_all()
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    k = binaural.K8 if "hrm1" in name else resample.K10
+    assert k.launches > 0 and limiter.K3.launches > 0
+    assert all(k.plain_on_cuda == 0 for k in kernels)

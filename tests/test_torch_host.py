@@ -2,9 +2,11 @@
 
 core/stream.py, core/presentation.py, core/timeline.py and dsp/demix.py's
 host state machines are copies of the JAX package's (whose modules import
-JAX at module level); codecs/opus/decoder.py copies the spectrum export.
-Driven through both packages' BatchedStreamDecoder construction, they must
-give equal arrays and equal configurations.
+JAX at module level); codecs/opus/decoder.py copies the spectrum export;
+dsp/binaural.py copies the HRIR model and the segment plan, dsp/resample.py
+the speexdsp filter design and DeviceResampler's precompute. Driven
+through both packages' BatchedStreamDecoder construction, or called with
+the same arguments, they must give equal arrays and equal configurations.
 """
 
 import dataclasses
@@ -17,9 +19,13 @@ import vectors
 from iamf_tpu.constants import AnimationType, ChannelLayout
 from iamf_tpu.core import presentation as jpres
 from iamf_tpu.core.batch_decoder import BatchedStreamDecoder as JaxDecoder
+from iamf_tpu.dsp import binaural as jbin
+from iamf_tpu.dsp import resample as jres
 from iamf_tpu_torch import convert
 from iamf_tpu_torch.core import presentation as ppres
 from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+from iamf_tpu_torch.dsp import binaural as pbin
+from iamf_tpu_torch.dsp import resample as pres
 
 SAMPLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "iamf_tpu", "data", "sample_opus_714.iamf")
@@ -32,6 +38,14 @@ def _gain_segments(n, step):
 
 STREAMS = {
     "opus_sample_ssJ": (lambda: open(SAMPLE, "rb").read(), 9),
+    # binaural: M2B + H2B elements with HRIR banks
+    "two_elements_binaural": (
+        lambda: vectors.build_two_element_stream(n_frames=6, hrm=1)[0],
+        dict(binaural=True)),
+    # 44.1 kHz: float emission, the normalization gain kept for the tail
+    "resample51_441_norm_ss1": (
+        lambda: vectors.build_pcm_51_stream(n_frames=6, rate=44100)[0],
+        dict(sound_system=1, normalization_db=-10.0)),
     # demix parameter blocks + animated element and output mix gains,
     # downmixed 7.1.4 -> 5.1.2
     "pcm714_param_blocks_ss2": (
@@ -66,9 +80,9 @@ def _stream_fields(stream):
 def test_host_copies_match(name):
     make, ss = STREAMS[name]
     data = make()
-    jd = JaxDecoder(data, sound_system=ss, batch_frames=8)
-    pd = BatchedStreamDecoder(data, sound_system=ss, batch_frames=8,
-                              device="cpu")
+    kw = ss if isinstance(ss, dict) else dict(sound_system=ss)
+    jd = JaxDecoder(data, batch_frames=8, **kw)
+    pd = BatchedStreamDecoder(data, batch_frames=8, device="cpu", **kw)
     # presentation selection
     assert (pd.mix_presentation.mix_presentation_id
             == jd.mix_presentation.mix_presentation_id)
@@ -83,8 +97,13 @@ def test_host_copies_match(name):
     for pe, je in zip(pd.elems, jd.elems):
         assert _stream_fields(pe.stream) == _stream_fields(je.stream)
         assert np.array_equal(pe.render_mat, je.render_mat)
+        assert (pe.hrtf_bank is None) == (je.hrtf_bank is None)
+        if pe.hrtf_bank is not None:
+            assert np.array_equal(pe.hrtf_bank, je.hrtf_bank)
     # the replayed timeline
     assert pd.trims == jd.trims and (pd.lead, pd.tail) == (jd.lead, jd.tail)
+    assert (pd.needs_resample, pd._norm_gain) == (jd.needs_resample,
+                                                  jd._norm_gain)
     tp, tj = pd.params, jd.params
     assert np.array_equal(tp.out_gain, tj.out_gain)
     assert tp.out_gain_per_sample == tj.out_gain_per_sample
@@ -101,3 +120,67 @@ def test_host_copies_match(name):
         assert len(tp.elements[0].mats) > 1
     if name.startswith("scalable"):
         assert tp.elements[0].rg_index
+    if name.endswith("binaural"):
+        assert all(es.hrtf_taps == 256 for es in pd.cfg.elements)
+    if "441" in name:
+        assert pd.cfg.emit_float and pd._norm_gain != 1.0
+
+
+LAYOUTS = [ChannelLayout.STEREO, ChannelLayout.L510, ChannelLayout.L712,
+           ChannelLayout.L714]
+
+
+def test_binaural_host_copies_match(tmp_path):
+    for layout in LAYOUTS:
+        assert np.array_equal(pbin.hrir_bank(layout), jbin.hrir_bank(layout))
+    for az, el, taps in ((30.0, 0.0, 256), (-110.0, 35.0, 128),
+                         (90.0, -15.0, 512)):
+        assert np.array_equal(pbin.spherical_head_hrir(az, el, taps),
+                              jbin.spherical_head_hrir(az, el, taps))
+    for n in (1, 7, 1215, 7935, 123135):
+        assert pbin.fft_conv_len(n) == jbin.fft_conv_len(n)
+    for B, T, taps in ((128, 960, 256), (3, 960, 256), (12, 480, 64),
+                       (7, 1024, 256)):
+        assert pbin.batch_seg_plan(B, T, taps) == jbin.batch_seg_plan(
+            B, T, taps)
+    assert pbin.batch_seg_plan(128, 960, 256) == (7680, 8000, 16)
+    rng = np.random.RandomState(9)
+    p = tmp_path / "set.npz"
+    np.savez(p, az30_el0=rng.randn(2, 64).astype(np.float32),
+             **{"az-30_el0": rng.randn(2, 48).astype(np.float32)})
+    assert np.array_equal(
+        pbin.load_hrir_bank(str(p), ChannelLayout.STEREO),
+        jbin.load_hrir_bank(str(p), ChannelLayout.STEREO))
+
+
+# the geometry the ported K10 is given per rate pair: N, num/den,
+# in_chunk/out_chunk, carry_len
+RATES = {44100: (64, 147, 160, 8085, 8800, 8116),
+         16000: (64, 1, 3, 8192, 24576, 8223),
+         32000: (64, 2, 3, 8192, 12288, 8223),
+         96000: (128, 2, 1, 8192, 4096, 8255)}
+
+
+@pytest.mark.parametrize("rate", sorted(RATES))
+def test_resample_host_copies_match(rate):
+    ours = pres.Resampler(rate, 48000)
+    ref = jres.Resampler(2, rate, 48000)
+    for f in ("num", "den", "filt_len", "oversample", "cutoff", "direct",
+              "input_latency"):
+        assert getattr(ours, f) == getattr(ref, f), f
+    for f in ("bank", "table"):
+        assert hasattr(ours, f) == hasattr(ref, f)
+        if hasattr(ref, f):
+            assert np.array_equal(getattr(ours, f), getattr(ref, f)), f
+    plan = pres.ResamplePlan(rate, 48000, device="cpu")
+    dr = jres.DeviceResampler(2, rate, 48000)
+    geo = (plan.N, plan.num, plan.den, plan.in_chunk, plan.out_chunk,
+           plan.carry_len)
+    assert geo == (dr.N, dr.num, dr.den, dr.in_chunk, dr.out_chunk,
+                   dr.carry_len) == RATES[rate]
+    assert np.array_equal(plan.W.numpy(), dr.W)
+    assert np.array_equal(plan.Wt.numpy(), dr.W.T)
+    assert np.array_equal(plan.win_start.numpy(), dr.win_start)
+    assert plan.input_latency == dr.host_params.input_latency
+    for T in (1, 960, 44100 * 30):
+        assert plan.n_out(T) == dr.n_out(T)

@@ -48,6 +48,57 @@ def test_decode_without_jax():
     assert "NOJAX-OK" in r.stdout
 
 
+NOJAX_OUTPUT_PATHS = r"""
+import sys
+sys.modules["jax"] = None
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+import numpy as np
+import vectors
+from iamf_tpu.constants import ChannelLayout
+from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+binaural = BatchedStreamDecoder(
+    vectors.build_pcm_51_stream(n_frames=7, hrm=1)[0], binaural=True,
+    batch_frames=3, device="cpu").decode_all()
+resampled = BatchedStreamDecoder(
+    vectors.build_pcm_layout_stream(ChannelLayout.STEREO, n_frames=8,
+                                    rate=44100)[0],
+    sound_system=0, batch_frames=3, device="cpu").decode_all()
+np.savez(sys.argv[2], binaural=binaural, resampled=resampled)
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print("NOJAX-OK")
+"""
+
+
+def test_output_paths_without_jax(tmp_path):
+    """A binaural (M2B, K8's twin) and a 44.1 kHz (K10's twin) decode with
+    JAX blocked, held to the JAX decoder here: <= 1 LSB, same shape."""
+    import numpy as np
+
+    import vectors
+    from iamf_tpu.constants import ChannelLayout
+    from iamf_tpu.core.batch_decoder import BatchedStreamDecoder as Jax
+
+    out = tmp_path / "out.npz"
+    r = subprocess.run([sys.executable, "-c", NOJAX_OUTPUT_PATHS, ROOT,
+                        str(out)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX-OK" in r.stdout
+    got = np.load(out)
+    want = {
+        "binaural": Jax(vectors.build_pcm_51_stream(n_frames=7, hrm=1)[0],
+                        binaural=True, batch_frames=3).decode_all(),
+        "resampled": Jax(vectors.build_pcm_layout_stream(
+            ChannelLayout.STEREO, n_frames=8, rate=44100)[0],
+            sound_system=0, batch_frames=3).decode_all(),
+    }
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert got[k].shape == w.shape, k
+        assert np.abs(got[k].astype(np.int32) - w.astype(np.int32)).max() <= 1
+
+
 def test_sources_import_no_jax():
     pkg = os.path.join(ROOT, "iamf_tpu_torch")
     bad = []
@@ -99,10 +150,13 @@ def test_cuda_request_without_card_raises():
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel's wrapper never hands a CPU pointer to the device: it
     raises before building or loading anything."""
+    from iamf_tpu.constants import ChannelLayout
     from iamf_tpu_torch.codecs.opus import imdct, synth
-    from iamf_tpu_torch.dsp import limiter
+    from iamf_tpu_torch.dsp import binaural, limiter, resample
 
     cfg = limiter.LimiterConfig(channels=2)
+    hrir = binaural.hrir_for_batch(
+        binaural.hrir_bank(ChannelLayout.STEREO), 1, 960, "cpu")
     calls = {
         "K1": lambda: imdct.imdct_overlap_cuda(
             imdct.FusedMats(), torch.zeros(1, 2, 960),
@@ -112,6 +166,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(2, synth.HIST), torch.zeros(2)),
         "K3": lambda: limiter.limit_quantize_cuda(
             cfg, limiter.init_state(cfg, "cpu"), torch.zeros(2, 960), 16),
+        "K8": lambda: binaural.hrtf_conv_cuda(
+            hrir, torch.zeros(2, 960), torch.zeros(2, 255)),
+        "K10": lambda: resample.resample_cuda(
+            resample.ResamplePlan(44100, 48000, device="cpu"),
+            torch.zeros(2, 960)),
     }
     for name, call in calls.items():
         with pytest.raises(ValueError, match="CUDA device"):
