@@ -3,14 +3,22 @@
 
     python3 chip_smoke.py
 
+It imports nothing of JAX or of the JAX package (both are blocked in
+sys.modules); its streams come from iamf_tpu_torch.tools.streams, and the
+only file of the JAX package it reads is the Opus sample stream (data).
+
 Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
   1. build: compiles the kernel library with nvcc and reports the seconds;
   2. kernels: K1 (IMDCT+TDAC), K2 (comb+de-emphasis+s16) and K3
      (limiter+quantize) at the main path's batch shape against their plain
-     PyTorch twins, with each one's time and its twin's; K1 also at the
-     Opus cell's batch of 8, with its device time (torch.profiler), and
-     its product kernel's SASS must hold tensor-core (HGMMA) and TMA
-     (UTMALDG) instructions;
+     PyTorch twins, with each one's time, its twin's and its bound; K1
+     also at the Opus cell's batch of 8, with its device time
+     (torch.profiler), and its product kernel's SASS must hold tensor-core
+     (HGMMA) and TMA (UTMALDG) instructions. K3 is held bit for bit (0 LSB,
+     equal state) on a burst across two [12, N] batches and on a batch of
+     the binaural cell (engaged, C = 2) and of the PCM cell (idle, C = 12),
+     each with its gain walk's device time beside the first design's; its
+     walk's SASS must hold no MUFU.RCP (no division left in the chain);
   3. Opus end to end: iamf_tpu/data/sample_opus_714.iamf -> sound system J
      at batch_frames=8 against the stored golden (the JAX package's decode),
      with the kernels' launch counts from that run;
@@ -22,6 +30,7 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      over 30 s of 12 channels at 44.1 kHz and on short 16/32/96 kHz inputs,
      and K3 over the whole resampled stream, against their plain twins,
      with times per call (CUDA events) and device times (torch.profiler);
+     K8 also against its one-call yardstick, F.conv1d;
   6. binaural at full width: 30 s of 7.1.4 PCM with headphones rendering
      mode 1 (M2B, 12-channel bed) at batch_frames=128, limiter on, against
      the CPU run, with its realtime factor, K8's launches and a profiler
@@ -31,7 +40,11 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      5.1 runs with normalization, limiter on and off.
 Every kernel's launch count in the kernels line comes from the run of the
 path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
-resampled one), with the counts set to 0 just before that run.
+resampled one), with the counts set to 0 just before that run; its
+bound_ms is the larger of bytes over 3.35 TB/s and operations over the
+peak of their type (H100 SXM), from the row's own inputs, counting the
+fewest operations the function needs (K8: an FFT convolution; K3: a
+sliding window max).
 The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without that line; so does a machine without a
 visible CUDA device.
@@ -40,6 +53,7 @@ visible CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -50,8 +64,10 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
-sys.modules["jax"] = None  # the port must run without JAX: fail loudly
+sys.path.insert(0, ROOT)
+# the port stands alone: any reach into JAX or the JAX package fails loudly
+sys.modules["jax"] = None
+sys.modules["iamf_tpu"] = None
 
 import torch  # noqa: E402
 
@@ -59,6 +75,19 @@ B_MAIN = 128   # the bench's batch_frames
 B_OPUS = 8     # the Opus cell's batch_frames
 LANES = 12     # 7.1.4 lanes
 FRAME = 960
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W) for the bounds: the
+# least time the card could take for a call's work is the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its operations over the peak rate of their type
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12    # CUDA cores
+TF32_FLOPS = 495e12   # tensor cores
+
+# K3's gain walk in its first design (one warp, a shuffle and IEEE
+# divisions per step), device ms per 122,880-sample batch (PERF.md §6: H100
+# 80GB HBM3, 700 W): engaged on the binaural content, idle at C = 12
+OLD_WALK_MS = {"engaged": 26.8, "idle": 0.30}
 
 
 def card_line() -> str:
@@ -128,6 +157,18 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: float, ops: float, rate: float) -> dict:
+    """bound_ms / bound_by for a call that moves n_bytes and does `ops`
+    operations of a type whose peak is `rate` per second."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, ops / rate
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 # --- phase 2: kernels vs plain twins ----------------------------------------
 
 def sass_counts(lib, kernel: str, opcodes) -> dict:
@@ -186,7 +227,13 @@ def k1_phase(dev, tag, lib):
               f"{tag}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if B == B_MAIN:
-            row.update(ms=ms, plain_ms=plain)
+            # three TF32 products (hi·hi + hi·lo + lo·hi) per useful MAC
+            b = bound(nbytes(freq, trans, tail0, y, tail), 3 * gflop * 1e9,
+                      TF32_FLOPS)
+            print(f"K1 bound [B={B}] {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}); yardstick: the twin's torch.matmul "
+                  f"(cuBLAS fp32) {dev_plain:.4f} ms of device time")
+            row.update(ms=ms, plain_ms=plain, library_ms=dev_plain, **b)
     return row
 
 
@@ -194,7 +241,7 @@ def _comb_params(rng, B, L):
     """Legal random comb parameters with period/gain changes between
     frames: periods 15..1024, gains 0.09375*(1..8) times a tapset row."""
     taps = np.load(os.path.join(
-        ROOT, "iamf_tpu", "codecs", "opus", "data",
+        ROOT, "iamf_tpu_torch", "data",
         "opus_tables.npz"))["gains"].astype(np.float32).reshape(3, 3)
     per = rng.randint(15, 1025, size=(B + 1, L))
     keep = rng.rand(B + 1, L) < 0.5   # about half the frames hold the period
@@ -240,64 +287,137 @@ def k2_phase(dev, tag):
     check(err <= 1.0, f"K2 disagrees with its plain twin: {err} LSB")
     ms = cuda_ms(lambda: synth.comb_deemph_cuda(window, y, buf, hist, demem),
                  reps=5, warm=1)
+    # a comb of 3 taps x 2 (old and new filter, cross-faded) and the
+    # de-emphasis: ~16 flops a sample
+    b = bound(nbytes(y, buf[..., FRAME:], hist, demem, window, pcm, h2, m2),
+              16 * y.numel(), FP32_FLOPS)
     print(f"K2 time {ms:.4f} ms, plain twin (chunked comb + blocked "
-          f"de-emphasis, torch ops on the card) {plain_ms:.1f} ms {tag}")
+          f"de-emphasis, torch ops on the card) {plain_ms:.1f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}) {tag}")
     return dict(name="k2_comb_deemph_s16", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, library_ms=None, **b)
 
 
 def _loud_planar(n_total, nch, burst_lo, burst_hi):
     """Sine bed at 0.4 FS with a +4 dB burst over [burst_lo, burst_hi)
     (the _loud_pcm pattern of tests/test_sharded_decoder.py), planar
     float32 [nch, n_total] at full scale 1.0."""
-    import vectors
+    from iamf_tpu_torch.tools import streams
 
-    pcm = vectors.sine_pcm(n_total, nch, 48000, amp=0.4, bits=16, seed=3)
-    burst = vectors.sine_pcm(burst_hi - burst_lo, nch, 48000, amp=1.45,
+    pcm = streams.sine_pcm(n_total, nch, 48000, amp=0.4, bits=16, seed=3)
+    burst = streams.sine_pcm(burst_hi - burst_lo, nch, 48000, amp=1.45,
                              bits=16, seed=4)
     pcm[burst_lo:burst_hi] = np.clip(burst, -32768, 32767)
     return (pcm.T / 32768.0).astype(np.float32)
 
 
-def k3_phase(dev, tag):
+def _limiter_batch(dev, stream, kw, index=1):
+    """(cfg, state, x) of the limiter's `index`-th call in a card decode of
+    `stream` at batch_frames=128: a batch of the main path as it is."""
+    from iamf_tpu_torch.core import pipeline as ppipe
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+
+    calls = []
+    real = ppipe.limit_quantize
+
+    def spy(cfg, state, x, bits, frame):
+        calls.append((cfg, {k: v.clone() for k, v in state.items()},
+                      x.clone()))
+        return real(cfg, state, x, bits, frame)
+
+    ppipe.limit_quantize = spy
+    try:
+        BatchedStreamDecoder(stream, batch_frames=B_MAIN, device=dev,
+                             **kw).decode_all()
+    finally:
+        ppipe.limit_quantize = real
+    return calls[index]
+
+
+def k3_check(label, cfg, state, x, plain_ms=None):
+    """K3 against its twin (on a CPU copy: its per-sample loop on the card
+    would be a launch per sample, which is what K3 replaces) from the same
+    state: the output and the new state must be equal bit for bit. Returns
+    (max |diff| in LSB, the twin's host ms, the twin's new state)."""
     from iamf_tpu_torch.dsp import limiter
 
-    N = B_MAIN * FRAME
-    C = LANES
-    # burst spans the edge between two batches: attack in the first,
-    # release (200 ms) running on into the second
-    x = _loud_planar(2 * N, C, N - 4 * FRAME, N + 2 * FRAME)
-    cfg = limiter.LimiterConfig(channels=C)
-    xa, xb = torch.from_numpy(x[:, :N]), torch.from_numpy(x[:, N:])
-
-    st = limiter.init_state(cfg, dev)
-    st1, pa = limiter.limit_quantize_cuda(cfg, st, xa.to(dev), 16)
-    st2, pb = limiter.limit_quantize_cuda(cfg, st1, xb.to(dev), 16)
-    # plain twin on a CPU copy: its per-sample loop on the card would be a
-    # launch per sample, which is what K3 replaces
-    sc = limiter.init_state(cfg, "cpu")
+    new_d, q_d = limiter.limit_quantize_cuda(cfg, state, x, 16)
+    st_c = {k: v.cpu() for k, v in state.items()}
     t = time.perf_counter()
-    sc1, qa = limiter.limit_quantize(cfg, sc, xa, 16, FRAME)
-    plain_ms = (time.perf_counter() - t) * 1e3
-    sc2, qb = limiter.limit_quantize(cfg, sc1, xb, 16, FRAME)
-    got = torch.cat([pa, pb]).cpu().numpy().astype(np.int32)
-    want = torch.cat([qa, qb]).numpy().astype(np.int32)
-    err = int(np.abs(got - want).max())
-    env_err = float((st2["env"].cpu() - sc2["env"]).abs().max())
-    engaged = int(np.abs(want).max())
-    print(f"K3 limiter+quantize [{C}, 2x{N}] with a +4 dB burst across the "
-          f"batch edge: int16 max|diff| {err} (bound 1), envelope state "
-          f"max|diff| {env_err:.3e}, output peak {engaged}")
-    check(err <= 1, f"K3 disagrees with its plain twin: {err} LSB")
-    check(engaged < 29300 and float(sc1["env"][3]) != -1.0,
-          "the limiter did not engage")
-    xa_d = xa.to(dev)
-    ms = cuda_ms(lambda: limiter.limit_quantize_cuda(cfg, st, xa_d, 16),
-                 reps=10, warm=1)
-    print(f"K3 time {ms:.4f} ms per {B_MAIN}-frame batch (attack batch), "
-          f"plain twin on the host CPU {plain_ms:.1f} ms {tag}")
-    return dict(name="k3_limiter_quantize", max_abs_err=float(err), ms=ms,
-                plain_ms=plain_ms)
+    new_p, q_p = limiter.limit_quantize(cfg, st_c, x.cpu(), 16, FRAME)
+    twin_ms = (time.perf_counter() - t) * 1e3
+    err = int((q_d.cpu().to(torch.int32) - q_p.to(torch.int32)).abs().max())
+    env_d = new_d["env"].cpu().numpy().view(np.int32)
+    env_p = new_p["env"].numpy().view(np.int32)
+    same = all(torch.equal(new_d[k].cpu(), new_p[k])
+               for k in ("delay_data", "peak_data", "entry_index"))
+    print(f"K3 {label}: int16 max|diff| {err} (bound 0), env bit-equal "
+          f"{bool((env_d == env_p).all())}, env {new_p['env'].tolist()}, "
+          f"delay line and ring equal {same}")
+    check(err == 0 and (env_d == env_p).all() and same,
+          f"K3 disagrees with its plain twin ({label})")
+    return err, twin_ms, new_p
+
+
+def k3_phase(dev, tag, lib):
+    from iamf_tpu_torch.dsp import limiter
+    from iamf_tpu_torch.tools import streams
+
+    counts = sass_counts(lib, "gain_walk", ("MUFU.RCP", "UBLKCP", "SYNCS"))
+    print(f"K3 gain_walk SASS: {counts}")
+    check(counts["MUFU.RCP"] == 0, f"a division is left in the walk: {counts}")
+
+    N = B_MAIN * FRAME
+    row = dict(name="k3_limiter_quantize", max_abs_err=0.0)
+    # a burst across the edge between two [12, N] batches: attack in the
+    # first, release (200 ms) running on into the second
+    x = torch.from_numpy(_loud_planar(2 * N, LANES, N - 4 * FRAME,
+                                      N + 2 * FRAME)).to(dev)
+    cfg = limiter.LimiterConfig(channels=LANES)
+    st = limiter.init_state(cfg, dev)
+    err, _, st1 = k3_check("[12, N] attack batch", cfg, st, x[:, :N])
+    err2, _, _ = k3_check("[12, N] release batch", cfg,
+                          {k: v.to(dev) for k, v in st1.items()}, x[:, N:])
+    row["max_abs_err"] = float(max(err, err2))
+
+    L714 = streams.ChannelLayout.L714
+    cases = {
+        # the binaural 30 s cell's second limiter batch: C = 2, retriggering
+        # every ~1.6 samples
+        "engaged": _limiter_batch(dev, streams.build_pcm_layout_stream(
+            L714, n_frames=2 * B_MAIN, amp=0.5, hrm=1)[0],
+            dict(binaural=True)),
+        # the PCM 30 s cell's second batch: C = 12, below the threshold
+        "idle": _limiter_batch(dev, streams.build_pcm_layout_stream(
+            L714, n_frames=2 * B_MAIN, amp=0.5)[0], dict(sound_system=9)),
+    }
+    for name, (cfg, st, x) in cases.items():
+        C = x.shape[0]
+        err, twin_ms, new_p = k3_check(f"{name} [{C}, {N}]", cfg, st, x)
+        check((float(new_p["env"][3]) != -1.0) == (name == "engaged"),
+              f"K3 {name}: the envelope is {new_p['env'].tolist()}")
+        row["max_abs_err"] = max(row["max_abs_err"], float(err))
+        ms = cuda_ms(lambda: limiter.limit_quantize_cuda(cfg, st, x, 16))
+        dev_ms, per = device_ms(
+            lambda: limiter.limit_quantize_cuda(cfg, st, x, 16))
+        walk = sum(v for k, v in per.items() if "gain_walk" in k)
+        out = torch.empty((N, C), dtype=torch.int16)
+        D = cfg.delay_size
+        # bytes: x, the state in and out, the int16 output; operations: per
+        # sample the channel max, 3 for the sliding window max (van Herk /
+        # Gil-Werman: a prefix and a suffix max per block of D, then one max
+        # of the two), ~10 for the recurrence, 3 per output sample for the
+        # quantize
+        b = bound(nbytes(x, out) + 2 * (4 * C * D + 4 * D + 4 + 16),
+                  N * (2 * C + 3 + 10 + 3 * C), FP32_FLOPS)
+        print(f"K3 {name} [{C}, {N}]: {ms:.4f} ms per call, device "
+              f"{dev_ms:.4f} ms, gain walk {walk:.4f} ms (the first design's "
+              f"walk: {OLD_WALK_MS[name]} ms); bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); plain twin on the host CPU "
+              f"{twin_ms:.1f} ms {tag}")
+        if name == "engaged":
+            row.update(ms=ms, plain_ms=twin_ms, library_ms=None, **b)
+    return row
 
 
 # --- phase 3 / 4: the decode path ----------------------------------------------
@@ -338,17 +458,17 @@ def opus_phase(dev, tag, kernels):
 
 
 def pcm_phase(dev, tag):
-    import vectors
+    from iamf_tpu_torch.tools import streams
     from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
 
-    L714 = vectors.ChannelLayout.L714
+    L714 = streams.ChannelLayout.L714
 
     def run(stream, device, bf):
         return BatchedStreamDecoder(stream, sound_system=9, batch_frames=bf,
                                     device=device).decode_all()
 
     n30 = 1500  # 30 s of 960-sample frames
-    stream, _ = vectors.build_pcm_layout_stream(
+    stream, _ = streams.build_pcm_layout_stream(
         L714, n_frames=n30, amp=0.5)
     got = run(stream, dev, B_MAIN)  # also the warm-up
     walls = timed(lambda: run(stream, dev, B_MAIN), 5)
@@ -366,7 +486,7 @@ def pcm_phase(dev, tag):
     # burst across the edge of the 16-frame batches at frame 16
     loud = (_loud_planar(n_loud * FRAME, 12, 14 * FRAME, 18 * FRAME).T
             * 32768.0).round().astype(np.int64)
-    stream, _ = vectors.build_pcm_layout_stream(
+    stream, _ = streams.build_pcm_layout_stream(
         L714, n_frames=n_loud, pcm_override=loud)
     got = run(stream, dev, 16)
     want = run(stream, "cpu", 16)
@@ -392,10 +512,10 @@ def _twin_times(tag, name, fast, plain, reps=20, plain_reps=20):
 
 
 def k8_phase(dev, tag):
-    import vectors
+    from iamf_tpu_torch.tools import streams
     from iamf_tpu_torch.dsp import binaural
 
-    L = vectors.ChannelLayout
+    L = streams.ChannelLayout
     row = dict(name="k8_hrtf_conv", max_abs_err=0.0)
     for C, layout in ((12, L.L714), (10, L.L712)):
         bank = binaural.hrir_bank(layout)
@@ -422,8 +542,58 @@ def k8_phase(dev, tag):
             print(f"K8 [C={C}, B={B}]: {gfma / ms:.2f} T FMA/s per call")
             row["max_abs_err"] = max(row["max_abs_err"], err)
             if (C, B) == (LANES, B_MAIN):
-                row.update(ms=ms, plain_ms=plain)
+                ops = fft_conv_ops(C, 2, B * FRAME, 256)
+                b = bound(nbytes(x, h.bank, ov, y, o), ops, FP32_FLOPS)
+                lib_ms = k8_library(tag, h, x, ov, y_p, o_p)
+                print(f"K8 bound [C={C}, B={B}] {b['bound_ms']:.4f} ms "
+                      f"({b['bound_by']}; {ops / 1e6:.1f} M flops by FFT, "
+                      f"{2 * gfma * 1e3:.1f} M direct)")
+                row.update(ms=ms, plain_ms=plain, library_ms=lib_ms, **b)
     return row
+
+
+def fft_conv_ops(c_in, c_out, n, taps):
+    """The fewest fp32 operations of the convolution of c_in channels of n
+    samples with c_in x c_out filters of `taps` taps, summed into c_out
+    outputs: overlap-save with real FFTs of F points (2.5 F log2 F each),
+    one per input and output block, a complex multiply-add (8) per bin,
+    input channel and output, and the filters' own transforms once; the
+    least over F."""
+    best = math.inf
+    for k in range(int(math.log2(taps)) + 1, 17):
+        F = 1 << k
+        fft = 2.5 * F * k
+        blocks = math.ceil(n / (F - taps + 1))
+        best = min(best, c_in * c_out * fft + blocks * (
+            (c_in + c_out) * fft + 8 * c_in * c_out * (F // 2 + 1)))
+    return best
+
+
+def k8_library(tag, h, x, ov, y_p, o_p):
+    """The one PyTorch call computing K8's convolution: F.conv1d (cuDNN,
+    fp32, TF32 off) of the bed with the time-reversed HRIR bank, padded by
+    taps - 1 on both sides; the carried overlap is added to its head.
+    Checked against K8's twin first; returns its ms per call (CUDA
+    events)."""
+    import torch.nn.functional as F
+
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+    taps = h.bank.shape[2]
+    w = h.bank.flip(-1).contiguous()
+    full = F.conv1d(x[None], w, padding=taps - 1)[0]
+    full[:, :taps - 1] += ov
+    N = x.shape[1]
+    err = max(float((full[:, :N] - y_p).abs().max()),
+              float((full[:, N:] - o_p).abs().max()))
+    print(f"F.conv1d yardstick for K8: max|diff| vs twin {err:.3e} "
+          f"(bound 1e-4)")
+    check(err <= 1e-4, f"F.conv1d disagrees with K8's twin: {err}")
+    ms = cuda_ms(lambda: F.conv1d(x[None], w, padding=taps - 1))
+    dev, per = device_ms(lambda: F.conv1d(x[None], w, padding=taps - 1))
+    top = max(per, key=per.get) if per else "none"
+    print(f"F.conv1d [{x.shape[0]} -> 2, {N}]: {ms:.4f} ms per call, "
+          f"device {dev:.4f} ms ({top[:60]}) {tag}")
+    return ms
 
 
 def k10_k3_phase(dev, tag):
@@ -453,7 +623,12 @@ def k10_k3_phase(dev, tag):
             plain_reps=5 if main else 20)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if main:
-            row.update(ms=ms, plain_ms=plain)
+            # 64 taps a phase: a multiply-add per tap and output
+            b = bound(nbytes(x, y, plan.W), 2 * plan.N * y.numel(),
+                      FP32_FLOPS)
+            print(f"K10 bound [{rate}, {secs} s] {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})")
+            row.update(ms=ms, plain_ms=plain, library_ms=None, **b)
 
     # K3 over a whole resampled stream, as the resample tail calls it:
     # 30 s at 48 kHz plus the delay_size drain, one call; a sine bed with a
@@ -465,15 +640,9 @@ def k10_k3_phase(dev, tag):
     cfg = limiter.LimiterConfig(channels=LANES)
     x_d = xs.to(dev)
     st = limiter.init_state(cfg, dev)
-    _, q = limiter.limit_quantize_cuda(cfg, st, x_d, 16)
-    t = time.perf_counter()
-    _, q_p = limiter.limit_quantize(cfg, limiter.init_state(cfg, "cpu"),
-                                    xs, 16, FRAME)
-    plain_ms = (time.perf_counter() - t) * 1e3
-    err = int((q.cpu().to(torch.int32) - q_p.to(torch.int32)).abs().max())
-    print(f"K3 over a 30 s stream [{LANES}, {xs.shape[1]}] with a +4 dB "
-          f"burst: int16 max|diff| {err} (bound 1)")
-    check(err <= 1, f"K3 on the whole stream: {err} LSB")
+    _, plain_ms, _ = k3_check(f"over a 30 s stream [{LANES}, "
+                              f"{xs.shape[1]}] with a +4 dB burst", cfg, st,
+                              x_d)
     ms = cuda_ms(lambda: limiter.limit_quantize_cuda(cfg, st, x_d, 16),
                  reps=5, warm=1)
     dev_ms, per = device_ms(
@@ -546,23 +715,23 @@ def decode_path(dev, tag, label, data, kw, kernels, must, must_not=()):
 
 
 def binaural_phase(dev, tag, kernels):
-    import vectors
+    from iamf_tpu_torch.tools import streams
     from iamf_tpu_torch.dsp.binaural import K8
     from iamf_tpu_torch.dsp.limiter import K3
     from iamf_tpu_torch.dsp.resample import K10
 
-    L = vectors.ChannelLayout
-    stream, _ = vectors.build_pcm_layout_stream(L.L714, n_frames=1500,
+    L = streams.ChannelLayout
+    stream, _ = streams.build_pcm_layout_stream(L.L714, n_frames=1500,
                                                 amp=0.5, hrm=1)
     launches = decode_path(
         dev, tag, "binaural 7.1.4 M2B 30 s", stream,
         dict(binaural=True, batch_frames=B_MAIN), kernels, (K8, K3), (K10,))
     short = {
-        "binaural FOA H2B": (vectors.build_ambisonics_pcm_stream(
+        "binaural FOA H2B": (streams.build_ambisonics_pcm_stream(
             order=1, n_frames=40, target_layouts=(0,), hrm=1)[0], (K8,), ()),
-        "binaural two elements M2B + H2B": (vectors.build_two_element_stream(
+        "binaural two elements M2B + H2B": (streams.build_two_element_stream(
             n_frames=40, gain2_q78=-(3 << 8), hrm=1)[0], (K8,), ()),
-        "binaural 5.1 mode 0 (matrix)": (vectors.build_pcm_51_stream(
+        "binaural 5.1 mode 0 (matrix)": (streams.build_pcm_51_stream(
             n_frames=40)[0], (K3,), (K8,)),
     }
     for label, (data, must, must_not) in short.items():
@@ -573,18 +742,18 @@ def binaural_phase(dev, tag, kernels):
 
 
 def resample_phase(dev, tag, kernels):
-    import vectors
+    from iamf_tpu_torch.tools import streams
     from iamf_tpu_torch.dsp.binaural import K8
     from iamf_tpu_torch.dsp.limiter import K3
     from iamf_tpu_torch.dsp.resample import K10
 
-    L = vectors.ChannelLayout
-    stream, _ = vectors.build_pcm_layout_stream(
+    L = streams.ChannelLayout
+    stream, _ = streams.build_pcm_layout_stream(
         L.L714, n_frames=1378, amp=0.5, rate=44100)
     launches = decode_path(
         dev, tag, "pcm 7.1.4 44.1 kHz 30 s -> ssJ", stream,
         dict(sound_system=9, batch_frames=B_MAIN), kernels, (K10, K3), (K8,))
-    data = vectors.build_pcm_51_stream(n_frames=40, rate=44100)[0]
+    data = streams.build_pcm_51_stream(n_frames=40, rate=44100)[0]
     decode_path(dev, tag, "pcm 5.1 44.1 kHz, normalization -10 dB", data,
                 dict(sound_system=1, batch_frames=16,
                      normalization_db=-10.0), kernels, (K10, K3))
@@ -613,7 +782,8 @@ def main() -> int:
     print(f"build: {secs:.2f} s for {len(kbuild.sources())} sources -> "
           f"{os.path.relpath(path, ROOT)}")
 
-    rows = [k1_phase(dev, tag, path), k2_phase(dev, tag), k3_phase(dev, tag)]
+    rows = [k1_phase(dev, tag, path), k2_phase(dev, tag),
+            k3_phase(dev, tag, path)]
     kernels = (K1, K2, K3, K8, K10)
     launches = opus_phase(dev, tag, (K1, K2, K3))
     pcm_phase(dev, tag)
@@ -639,7 +809,9 @@ def main() -> int:
         table.append({"name": r["name"], "route": "cuda", "source": src,
                       "replaces": rep, "launches": launches[k.symbol],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                      "plain_ms": r["plain_ms"]})
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"],
+                      "library_ms": r["library_ms"]})
     print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

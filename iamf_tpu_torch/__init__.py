@@ -1,12 +1,14 @@
 """iamf-tpu-torch: the IAMF batched decode path in PyTorch, with hand-written
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
-The JAX package (``iamf_tpu``) is the reference this package is held to;
-its host layers that import no JAX (OBU parser, database, codecs, render
-tables, the stream muxer) are imported as they are, and the ones that do are
-carried here as JAX-free copies (core/stream.py, core/timeline.py,
-core/presentation.py, dsp/demix.py, dsp/limiter.py, core/pipeline.py, and
-the host parts of dsp/binaural.py and dsp/resample.py).
+The JAX package (``iamf_tpu``) is the reference this package is held to
+(by the tests, which import both); this package imports none of it. The
+host layers it needs are carried here as copies: constants, the OBU parser
+(obu/), core/database.py, the codec registry and host decoders (codecs/),
+dsp/render.py and the host half of dsp/downmix.py, the muxer
+(tools/builder.py), core/stream.py, core/timeline.py,
+core/presentation.py, and the host parts of dsp/demix.py, dsp/limiter.py,
+core/pipeline.py, dsp/binaural.py and dsp/resample.py.
 
 Precision policy: the reference evaluates every contraction at
 ``Precision.HIGHEST`` (iamf_tpu/__init__.py), so TF32 is switched off for

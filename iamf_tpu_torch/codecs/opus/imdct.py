@@ -34,9 +34,8 @@ OVER = 60  # TDAC mirror half-overlap (celt overlap 120, mirror mixes 60)
 NOUT = 1024  # K1's product columns: 960 samples, 60 tail, 4 zero
 
 _TABLES = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))),
-    "iamf_tpu", "codecs", "opus", "data", "opus_tables.npz")
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "data", "opus_tables.npz")
 
 K1 = Kernel("iamf_k1_imdct", [P, I, P, P, I, I] + [P] * 5 + [P] * 4)
 

@@ -22,7 +22,7 @@ from .codecs.opus.synth import SynthCarry
 from .core.pipeline import ElementSpec, PipelineConfig
 from .dsp.binaural import Hrir, batch_seg_plan
 from .dsp.demix import DemixSpec
-from .dsp.limiter import LimiterConfig
+from .dsp.limiter import LimiterConfig, check_reachable_tc
 
 
 def _t(a, device, dtype=None):
@@ -71,12 +71,16 @@ def stream_params(params: dict, device, cfg=None) -> dict:
 
 
 def limiter_state(state: dict, device) -> dict:
-    """iamf_tpu.dsp.limiter state dict -> dsp/limiter.py state dict."""
+    """iamf_tpu.dsp.limiter state dict -> dsp/limiter.py state dict. The
+    envelope time must be one K3 can place: -1 or a value the recurrence
+    reaches (check_reachable_tc; those depend only on the attack, release
+    and rate, which both decoders leave at LimiterConfig's defaults)."""
     if "tp_hist" in state:
         raise NotImplementedError(
             "true-peak limiter state (ROADMAP.md §1 item 9)")
     env = [state[k] for k in ("current_gain", "target_start_gain",
                               "target_end_gain", "current_tc")]
+    check_reachable_tc(LimiterConfig(), np.asarray(env[3]))
     return {
         "env": _t(np.array(env, np.float32), device),
         "delay_data": _t(state["delay_data"], device, np.float32),

@@ -2,7 +2,7 @@
 iamf_tpu/core/batch_decoder.py).
 
 The host half is the reference's: all OBUs are split up front
-(iamf_tpu.obu.parser), the parameter timeline is replayed (core/timeline.py),
+(obu/parser.py), the parameter timeline is replayed (core/timeline.py),
 PCM substreams are unpacked in one vectorized pass, and Opus substreams are
 entropy-decoded per batch by the native decoder into one packed spectra
 buffer, prefetched one batch ahead on a worker thread so host entropy
@@ -38,25 +38,24 @@ import dataclasses
 import numpy as np
 import torch
 
-from iamf_tpu.codecs.base import open_decoder
-from iamf_tpu.constants import (
+from ..codecs.base import open_decoder
+from ..codecs.opus import synth as opus_synth
+from ..codecs.opus.decoder import decode_spectrum_batch
+from ..constants import (
     AmbisonicsMode, ChannelLayout, ElementType, LayoutType, SoundSystem,
     db_to_linear, q78_to_db,
 )
-from iamf_tpu.core.database import Database, codec_config_sampling_rate
-from iamf_tpu.dsp import render as rdr
-from iamf_tpu.dsp.downmix import DownmixerState, can_downmix, downmix_matrix
-from iamf_tpu.obu import parser
-
-from ..codecs.opus import synth as opus_synth
-from ..codecs.opus.decoder import decode_spectrum_batch
 from ..device import resolve_device
+from ..dsp import render as rdr
 from ..dsp.binaural import hrir_bank
 from ..dsp.demix import DemixSpec
+from ..dsp.downmix import DownmixerState, can_downmix, downmix_matrix
 from ..dsp.limiter import LimiterConfig, init_state, limit_quantize
 from ..dsp.quantize import quantize_interleave
 from ..dsp.resample import ResamplePlan, resample_stream
+from ..obu import parser
 from . import timeline
+from .database import Database, codec_config_sampling_rate
 from .pipeline import (ElementSpec, PipelineConfig, decode_frames, init_carry,
                        stream_params)
 from .presentation import best_loudness, best_mix_presentation
@@ -199,15 +198,17 @@ class _HostPlan:
 
 class BatchedStreamDecoder:
     """Decode a complete in-memory IAMF stream in frame batches on
-    `device` ('cuda' runs the hand-written kernels; 'cpu' their plain
-    twins)."""
+    `device`: 'cuda' (the default) runs the hand-written kernels and raises
+    where no card is visible; 'cpu', asked for by name, runs their plain
+    twins."""
 
     def __init__(self, data: bytes, sound_system: int = 0, bits: int = 16,
                  batch_frames: int = 128, limiter: bool = True,
                  normalization_db: float | None = None,
                  peak_threshold_db: float | None = None,
                  binaural: bool = False,
-                 mix_presentation_id: int | None = None, *, device):
+                 mix_presentation_id: int | None = None, *,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.bits = bits
         self.batch_frames = batch_frames

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from iamf_tpu.constants import LayoutType, q78_to_db
+from ..constants import LayoutType, q78_to_db
 
 from .stream import OutputLayout
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from iamf_tpu.constants import (
+from ..constants import (
     CH,
     ChannelLayout,
     ElementType,
@@ -24,8 +24,8 @@ from iamf_tpu.constants import (
     db_to_linear,
     q78_to_db,
 )
-from iamf_tpu.core.database import ElementItem, codec_config_sampling_rate
-from iamf_tpu.dsp import render as rdr
+from ..dsp import render as rdr
+from .database import ElementItem, codec_config_sampling_rate
 
 AAC_FRAME_SIZE = 1024
 MAX_FRAME_SIZE = AAC_FRAME_SIZE * 6

@@ -28,12 +28,11 @@ from typing import Optional
 
 import numpy as np
 
-from iamf_tpu.constants import ElementType, ParameterType, q08_to_float
-from iamf_tpu.core.database import Database, MixGainUnit
-from iamf_tpu.dsp.downmix import DownmixerState, downmix_matrix
-from iamf_tpu.obu import parser
-
+from ..constants import ElementType, ParameterType, q08_to_float
 from ..dsp.demix import DemixerState
+from ..dsp.downmix import DownmixerState, downmix_matrix
+from ..obu import parser
+from .database import Database, MixGainUnit
 from .stream import recon_channels_from_flags, recon_gain_flags_default
 
 

@@ -1,4 +1,6 @@
-"""Device handling: callers name the device; nothing here picks one.
+"""Device handling. The entry points run on the card unless the caller
+asks for the CPU by name: their device defaults to 'cuda', and a CUDA
+request without a visible card raises.
 
 A CUDA tensor goes to a hand-written kernel or the call raises; a CPU
 tensor takes the kernel's plain PyTorch twin. There is no fallback from

@@ -30,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from iamf_tpu.constants import CH, LAYOUT_CHANNELS_RENDER, ChannelLayout
+from ..constants import CH, LAYOUT_CHANNELS_RENDER, ChannelLayout
 
 from ..kernels.build import I, Kernel, P
 

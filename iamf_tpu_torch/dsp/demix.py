@@ -20,7 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from iamf_tpu.constants import (
+from ..constants import (
     CH,
     DEMIX_FACTORS,
     ChannelLayout,

@@ -14,6 +14,11 @@ path or the per-sample recurrence). The recurrence's per-sample loop runs
 on a host copy, in numpy float32 scalars with the reference's operation
 order: a loop of per-sample device launches is exactly what K3 replaces.
 
+K3's gain walk reads the recurrence off tables indexed by the step count
+since the last trigger (``walk_tables``): the envelope time tc is -1 or
+one of the values T[m] the recurrence reaches, so each coefficient is
+computed once, on the host, with the same float32 roundings.
+
 State (a dict of tensors; core/pipeline.py carries it across batches):
   env:         float32 [4] = current_gain, target_start_gain,
                target_end_gain, current_tc (-1 = idle)
@@ -26,6 +31,7 @@ Only sample-peak metering is ported; true_peak raises NotImplementedError
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -38,8 +44,10 @@ LIMITER_ATTACK_SEC = 0.001
 LIMITER_RELEASE_SEC = 0.200
 LIMITER_LOOKAHEAD = 240
 
+WALK_TILE = 1024  # samples per tile of K3's walk (csrc/limiter.cu TS)
+
 K3 = Kernel("iamf_k3_limiter",
-            [P, I, I, P, P, P, I, P, F, F, F, F, I, P, P, P, P, P, P])
+            [P, I, I, P, P, P, I, P, F, P, P, I, I, I, I, P, P, P, P, P, P])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +101,96 @@ def _curve_accel(v):
         return np.float32(0.0)
     d = v - one
     return one - d * d
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkTables:
+    """The envelope's reachable times and per-step coefficients.
+
+    T[0] = 0, T[m+1] = fl(T[m] + inc) up to T[M], the first value
+    >= fl(rel + atk): tc is -1 (idle) or T[m], m steps after the last
+    trigger, held at T[M] once settled. The step from count m-1 to m is an
+    attack step when T[m-1] < atk (m <= A), a release step when
+    T[m-1] < rel + atk (A < m <= M). coef[m] is -curve_accel(T[m] / atk)
+    for attack steps and curve_accel((T[m] - atk) / rel) for release steps
+    (coef[0] = 0, unused): the gain after m < M steps is then
+    fl(tsg + fl(coef[m+1] * fl(tsg - teg))) while m < A, else
+    fl(teg + fl(coef[m+1] * fl(1 - teg))), and 1 at m = M."""
+
+    T: np.ndarray     # float32 [M + 1]
+    coef: np.ndarray  # float32 [M + 1]
+    M: int
+    A: int
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_tables(atk: float, rel: float, inc: float) -> WalkTables:
+    f = np.float32
+    atk, rel, inc = f(atk), f(rel), f(inc)
+    relatk = rel + atk
+    t = [f(0.0)]
+    while t[-1] < relatk:
+        t.append(t[-1] + inc)
+    T = np.array(t, np.float32)
+    M = len(T) - 1
+    A = int(np.count_nonzero(T < atk))
+    attack = np.arange(M) < A  # steps 1..M
+    v = np.where(attack, T[1:] / atk, (T[1:] - atk) / rel)
+    d = v - f(1.0)
+    c = np.where(v > f(1.0), f(1.0),
+                 np.where(v < f(0.0), f(0.0), f(1.0) - d * d))
+    coef = np.zeros(M + 1, np.float32)
+    coef[1:] = np.where(attack, -c, c)
+    for a in (T, coef):
+        a.setflags(write=False)
+    return WalkTables(T=T, coef=coef, M=M, A=A)
+
+
+def walk_tables(cfg: LimiterConfig) -> WalkTables:
+    """K3's walk tables for cfg's attack, release and sample rate (built
+    once; numpy float32 rounds each operation to nearest as the kernel's
+    __fadd_rn / __fdiv_rn do)."""
+    return _walk_tables(cfg.attack_sec, cfg.release_sec, cfg.inc_tc)
+
+
+def padded_tables(cfg: LimiterConfig) -> np.ndarray:
+    """[T; coef] as K3's walk reads them: [2, P] float32, P >= M + 5 a
+    multiple of 4 (the kernel copies them whole with 16-byte bulk copies).
+    Past M, T holds T[M] and coef holds 1: the release formula at count M,
+    fl(teg + fl(1 * fl(1 - teg))), is exactly 1 for every teg the
+    recurrence sets (0 < teg < 1, or -1 while idle), so the walk needs no
+    test for a settled envelope, and its loads ahead need no clamp."""
+    tab = walk_tables(cfg)
+    pad = np.ones((2, -(-(tab.M + 5) // 4) * 4), np.float32)
+    pad[0] = tab.T[-1]
+    pad[0, :tab.M + 1] = tab.T
+    pad[1, :tab.M + 1] = tab.coef
+    return pad
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def _device_tables(cfg: LimiterConfig, device):
+    """padded_tables on `device`, built once per (tables, device)."""
+    key = (cfg.attack_sec, cfg.release_sec, cfg.inc_tc, str(device))
+    if key not in _DEVICE_TABLES:
+        tab = walk_tables(cfg)
+        pad = torch.from_numpy(padded_tables(cfg)).to(device)
+        _DEVICE_TABLES[key] = (pad[0], pad[1], tab.M, tab.A, pad.shape[1])
+    return _DEVICE_TABLES[key]
+
+
+def check_reachable_tc(cfg: LimiterConfig, tc: float) -> None:
+    """Raise unless tc is -1 or a time T[m] the recurrence reaches: K3
+    finds m by an exact search in T."""
+    tc = np.float32(tc)
+    T = walk_tables(cfg).T
+    if tc != np.float32(-1.0) and not np.any(T == tc):
+        raise ValueError(
+            f"limiter envelope time {float(tc)!r} is neither -1 nor a value "
+            f"the recurrence reaches from a trigger (T[m], m <= "
+            f"{len(T) - 1})")
 
 
 def _gain_walk(cfg: LimiterConfig, env: np.ndarray, window_peaks):
@@ -198,8 +296,8 @@ def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
     _require_sample_peak(cfg)
     C, N = x.shape
     D = cfg.delay_size
-    if C != cfg.channels or x.dtype != torch.float32:
-        raise ValueError(f"K3 takes float32 [{cfg.channels}, N], got "
+    if C != cfg.channels or x.dtype != torch.float32 or N < 1:
+        raise ValueError(f"K3 takes float32 [{cfg.channels}, N >= 1], got "
                          f"{x.dtype} {list(x.shape)}")
     if bits not in (16, 24, 32):
         raise ValueError(f"bits {bits}")
@@ -212,7 +310,10 @@ def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
     x = x.contiguous()
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty((D + 3 * N,), **f32)
+    tab_t, tab_c, M, A, mp = _device_tables(cfg, dev)
+    ntiles = -(-N // WALK_TILE)
+    scratch = torch.empty((3 * ntiles * WALK_TILE + D + N + 2 * ntiles,),
+                          **f32)
     out = torch.empty((N, C), dtype=torch.int16 if bits == 16 else torch.int32,
                       device=dev)
     new = {
@@ -222,10 +323,9 @@ def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
         "entry_index": torch.empty((1,), dtype=torch.int32, device=dev),
     }
     K3(x, C, N, state["delay_data"], state["peak_data"],
-       state["entry_index"], D, state["env"],
-       cfg.attack_sec, cfg.release_sec, cfg.inc_tc, cfg.linear_threshold,
-       bits, scratch, out, new["delay_data"], new["peak_data"],
-       new["entry_index"], new["env"])
+       state["entry_index"], D, state["env"], cfg.linear_threshold,
+       tab_t, tab_c, M, A, mp, bits, scratch, out, new["delay_data"],
+       new["peak_data"], new["entry_index"], new["env"])
     return new, out
 
 

@@ -7,7 +7,8 @@ them on a GPU machine with
 
 Bounds: K1 0.25 at s16 scale (split-TF32 tensor-core product against
 the twin's fp32 torch.matmul); K2 1 s16 LSB (sequential vs blocked
-de-emphasis); K3 1 LSB; the Opus sample decode 1 LSB against the golden;
+de-emphasis); K3 0 LSB and a bit-equal state (the walk keeps every
+rounding of the recurrence); the Opus sample decode 1 LSB against the golden;
 K8 1e-4 at unit scale (direct-form fp32 sums against the twin's FFT
 convolution); K10 1e-5 (the same 64- or 128-tap fp32 dot products in
 another order); the binaural and 44.1 kHz decodes 1 LSB against the CPU
@@ -87,6 +88,24 @@ def test_k2_matches_plain(dev):
     assert torch.equal(h2.cpu(), h2_p)  # the comb itself is bit-exact
 
 
+def _k3_chain(dev, cfg, st, xs):
+    """K3 and its twin chained over the batches xs from the CPU state st:
+    after each batch the int output and the whole state are equal bit for
+    bit. Returns the twin's last state."""
+    s_d = {k: v.to(dev) for k, v in st.items()}
+    for x in xs:
+        launches = limiter.K3.launches
+        s_d, q_d = limiter.limit_quantize(cfg, s_d, x.to(dev), 16, 960)
+        assert limiter.K3.launches == launches + 1
+        st, q_p = limiter.limit_quantize(cfg, st, x, 16, 960)
+        assert torch.equal(q_d.cpu(), q_p)
+        assert torch.equal(s_d["env"].cpu().view(torch.int32),
+                           st["env"].view(torch.int32))
+        for k in ("delay_data", "peak_data", "entry_index"):
+            assert torch.equal(s_d[k].cpu(), st[k]), k
+    return st
+
+
 def test_k3_matches_plain(dev):
     rng = np.random.RandomState(2)
     C, T = 12, 960
@@ -94,13 +113,52 @@ def test_k3_matches_plain(dev):
     x = (rng.randn(C, 8 * T) * 0.3).astype(np.float32)
     x[:, 3 * T:5 * T] *= 4.0  # over threshold: attack and release
     xs = torch.from_numpy(x)
-    s_d, s_p = limiter.init_state(cfg, dev), limiter.init_state(cfg, "cpu")
-    for half in (xs[:, :4 * T], xs[:, 4 * T:]):
-        s_d, q_d = limiter.limit_quantize(cfg, s_d, half.to(dev), 16, T)
-        s_p, q_p = limiter.limit_quantize(cfg, s_p, half, 16, T)
-        d = (q_d.cpu().to(torch.int32) - q_p.to(torch.int32)).abs().max()
-        assert int(d) <= 1
-    assert torch.equal(s_d["env"].cpu(), s_p["env"])
+    _k3_chain(dev, cfg, limiter.init_state(cfg, "cpu"),
+              [xs[:, :4 * T], xs[:, 4 * T:]])
+
+
+def _noise(rng, C, N, scale):
+    return torch.from_numpy((rng.randn(C, N) * scale).astype(np.float32))
+
+
+def _mid_release(cfg, rng):
+    """A twin state 1000 samples after a burst: releasing, no retrigger."""
+    x = _noise(rng, cfg.channels, 3000, 0.1)
+    x[:, 500:1000] *= 10.0
+    st, _ = limiter.limit_plain(cfg, limiter.init_state(cfg, "cpu"), x, 960)
+    tab = limiter.walk_tables(cfg)
+    assert tab.T[tab.A] <= float(st["env"][3]) < tab.T[tab.M]
+    return st
+
+
+# name: (C, the batch lengths, level of the Gaussian input, start
+# mid-release)
+K3_CASES = {
+    "engaged_c2_n122880": (2, [122880], 0.5, False),
+    "idle_c12_n122880": (12, [122880], 0.1, False),
+    "n1": (2, [1, 1, 1], 0.5, True),
+    "n31": (2, [31, 31, 31], 0.5, True),
+    "n1025": (2, [1025, 1025], 0.5, True),
+    "three_batches_c12": (12, [7680, 7680, 7680], 0.3, False),
+    "mid_release_quiet_then_loud": (2, [3840, 3840, 960], 0.1, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K3_CASES))
+def test_k3_cases(dev, name):
+    """0 LSB and a bit-equal state against the twin: a whole batch engaged
+    (retriggering every few samples), a whole batch idle, batches shorter
+    and longer than a walk tile, a state carried across three batches, and
+    states entering mid-release."""
+    C, lens, level, mid = K3_CASES[name]
+    rng = np.random.RandomState(len(name))
+    cfg = limiter.LimiterConfig(channels=C)
+    st = _mid_release(cfg, rng) if mid else limiter.init_state(cfg, "cpu")
+    xs = [_noise(rng, C, n, level) for n in lens]
+    if name.startswith("mid_release"):
+        xs[-1] *= 10.0  # the last batch retriggers
+    st = _k3_chain(dev, cfg, st, xs)
+    assert (float(st["env"][3]) == -1.0) == name.startswith("idle")
 
 
 def test_opus_sample_matches_golden(dev):

@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 
 import vectors
-from iamf_tpu.codecs.opus.decoder import OpusDecoder
 from iamf_tpu.constants import ChannelLayout
 from iamf_tpu.core.batch_decoder import BatchedStreamDecoder as JaxDecoder
+from iamf_tpu_torch.codecs.opus.decoder import OpusDecoder
 from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

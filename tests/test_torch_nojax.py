@@ -1,10 +1,13 @@
-"""The PyTorch port runs without JAX, and refuses to run on a CUDA device
-that is not there.
+"""The PyTorch port runs without JAX and without the JAX package, and
+refuses to run on a CUDA device that is not there.
 
-The test process itself imports JAX (tests/conftest.py), so the JAX-free
-decode runs in a subprocess with ``sys.modules["jax"] = None``: any import
-of JAX there raises. codecs/base._ensure_registered swallows ImportError,
-so the subprocess also checks that the Opus codec is still registered.
+The test process itself imports JAX and iamf_tpu (tests/conftest.py), so
+the standalone decodes run in a subprocess with ``sys.modules["jax"] =
+sys.modules["iamf_tpu"] = None``: any import of either there raises.
+codecs/base._ensure_registered swallows ImportError, so the subprocess
+also checks that the port's own codecs are registered. The AST scan finds
+any import of JAX or iamf_tpu in the port's modules and chip_smoke.py,
+inside functions too.
 """
 
 import ast
@@ -21,13 +24,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOJAX_DECODE = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["iamf_tpu"] = None
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import iamf_tpu_torch
-from iamf_tpu.codecs import base
-from iamf_tpu.constants import Codec
+from iamf_tpu_torch.codecs import base
+from iamf_tpu_torch.constants import Codec
 from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
-assert Codec.OPUS in base.available_codecs(), base.available_codecs()
+assert {Codec.OPUS, Codec.PCM, Codec.FLAC, Codec.AAC} <= set(
+    base.available_codecs()), base.available_codecs()
 root = sys.argv[1]
 data = open(root + "/iamf_tpu/data/sample_opus_714.iamf", "rb").read()
 out = BatchedStreamDecoder(data, sound_system=9, batch_frames=8,
@@ -35,7 +40,7 @@ out = BatchedStreamDecoder(data, sound_system=9, batch_frames=8,
 want = np.load(root + "/iamf_tpu_torch/data/sample_opus_714_ssJ.npz")["pcm"]
 assert out.shape == want.shape
 assert np.abs(out.astype(np.int32) - want.astype(np.int32)).max() <= 1
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+assert not any(m.split(".")[0] in ("jax", "iamf_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("NOJAX-OK")
 """
@@ -51,20 +56,21 @@ def test_decode_without_jax():
 NOJAX_OUTPUT_PATHS = r"""
 import sys
 sys.modules["jax"] = None
-sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+sys.modules["iamf_tpu"] = None
+sys.path.insert(0, sys.argv[1])
 import numpy as np
-import vectors
-from iamf_tpu.constants import ChannelLayout
+from iamf_tpu_torch.constants import ChannelLayout
 from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+from iamf_tpu_torch.tools import streams
 binaural = BatchedStreamDecoder(
-    vectors.build_pcm_51_stream(n_frames=7, hrm=1)[0], binaural=True,
+    streams.build_pcm_51_stream(n_frames=7, hrm=1)[0], binaural=True,
     batch_frames=3, device="cpu").decode_all()
 resampled = BatchedStreamDecoder(
-    vectors.build_pcm_layout_stream(ChannelLayout.STEREO, n_frames=8,
+    streams.build_pcm_layout_stream(ChannelLayout.STEREO, n_frames=8,
                                     rate=44100)[0],
     sound_system=0, batch_frames=3, device="cpu").decode_all()
 np.savez(sys.argv[2], binaural=binaural, resampled=resampled)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+assert not any(m.split(".")[0] in ("jax", "iamf_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("NOJAX-OK")
 """
@@ -72,7 +78,9 @@ print("NOJAX-OK")
 
 def test_output_paths_without_jax(tmp_path):
     """A binaural (M2B, K8's twin) and a 44.1 kHz (K10's twin) decode with
-    JAX blocked, held to the JAX decoder here: <= 1 LSB, same shape."""
+    JAX and the JAX package blocked, on streams from the port's own
+    builders, held to the JAX decoder here on the same streams from
+    tests/vectors.py: <= 1 LSB, same shape."""
     import numpy as np
 
     import vectors
@@ -100,22 +108,28 @@ def test_output_paths_without_jax(tmp_path):
 
 
 def test_sources_import_no_jax():
-    pkg = os.path.join(ROOT, "iamf_tpu_torch")
+    """No module of the port and not chip_smoke.py imports JAX or the JAX
+    package, at module level or inside a function (relative imports stay
+    inside the port)."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "iamf_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    assert len(paths) > 30
     bad = []
-    for dirpath, _, files in os.walk(pkg):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(dirpath, f)
-            for node in ast.walk(ast.parse(open(path).read())):
-                names = []
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    names = [node.module]
-                bad += [(path, n) for n in names
-                        if n == "jax" or n.startswith("jax.")]
+    for path in paths:
+        for node in ast.walk(ast.parse(open(path).read())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif (isinstance(node, ast.ImportFrom) and node.module
+                  and node.level == 0):
+                names = [node.module]
+            bad += [(path, n) for n in names
+                    if n.split(".")[0] in ("jax", "iamf_tpu")]
     assert not bad
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert '"tests"' not in src and "vectors" not in src
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -147,11 +161,24 @@ def test_cuda_request_without_card_raises():
         BatchedStreamDecoder(data, sound_system=9, device="cuda")
 
 
+def test_default_device_is_the_card():
+    """BatchedStreamDecoder without a device runs on the card: with none
+    visible it raises, and nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: this checks the refusal")
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedStreamDecoder(data, sound_system=9)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel's wrapper never hands a CPU pointer to the device: it
     raises before building or loading anything."""
-    from iamf_tpu.constants import ChannelLayout
     from iamf_tpu_torch.codecs.opus import imdct, synth
+    from iamf_tpu_torch.constants import ChannelLayout
     from iamf_tpu_torch.dsp import binaural, limiter, resample
 
     cfg = limiter.LimiterConfig(channels=2)
