@@ -11,7 +11,9 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
   1. build: compiles the kernel library with nvcc and reports the seconds;
   2. kernels: K1 (IMDCT+TDAC), K2 (comb+de-emphasis+s16) and K3
      (limiter+quantize) at the main path's batch shape against their plain
-     PyTorch twins, with each one's time, its twin's and its bound; K1
+     PyTorch twins, with each one's time, its twin's and its bound; K2 on
+     random comb parameters and on the Opus sample's, each phase's device
+     time and phase A's steps per lane against its schedule; K1
      also at the Opus cell's batch of 8, with its device time
      (torch.profiler), and its product kernel's SASS must hold tensor-core
      (HGMMA) and TMA (UTMALDG) instructions. K3 is held bit for bit (0 LSB,
@@ -260,42 +262,110 @@ def _comb_params(rng, B, L):
     return pk
 
 
-def k2_phase(dev, tag):
+def _sample_params():
+    """The Opus sample's packed per-frame parameters [16, 12, 13], from the
+    port's host entropy decode."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    d = BatchedStreamDecoder(data, sound_system=9, batch_frames=8,
+                             device="cpu")
+    e = d.elems[0]
+    packets = [d.frames_per_substream[s] for s in e.substream_ids]
+    return np.concatenate([d._opus_entropy(e, packets, s, 8, 8)[..., FRAME:]
+                           for s in (0, 8)])
+
+
+# K2's first design (one block of two warps a lane, the de-emphasis one
+# thread's serial walk), ms per call at [12, 128·960] (PERF.md §6: H100
+# 80GB HBM3, 700 W)
+OLD_K2_MS = 1.5722
+
+
+def k2_inputs(dev):
+    """K2's inputs at [12, 128·960]: the packed buffers of the two
+    parameter sets (by name), and the spectra y, hist, demem and window
+    they share."""
     from iamf_tpu_torch.codecs.opus import synth
 
     rng = np.random.RandomState(1)
     B, L = B_MAIN, LANES
-    buf = np.zeros((B, L, FRAME + 13), np.float32)
-    buf[..., FRAME:] = _comb_params(rng, B, L)
-    buf = torch.from_numpy(buf).to(dev)
+    sets = {"random": _comb_params(rng, B, L),
+            "sample": np.tile(_sample_params(), (B // 16, 1, 1))}
+    bufs = {}
+    for name, pk in sets.items():
+        buf = np.zeros((B, L, FRAME + 13), np.float32)
+        buf[..., FRAME:] = pk
+        bufs[name] = torch.from_numpy(buf).to(dev)
     y = torch.from_numpy(
         rng.randn(B, L, FRAME).astype(np.float32) * 3000.0).to(dev)
     hist = torch.from_numpy(
         rng.randn(L, synth.HIST).astype(np.float32) * 3000.0).to(dev)
     demem = torch.from_numpy(rng.randn(L).astype(np.float32) * 100.0).to(dev)
     window = torch.from_numpy(synth.window120().copy()).to(dev)
-    pcm, h2, m2 = synth.comb_deemph_cuda(window, y, buf, hist, demem)
-    plain_ms, (pcm_p, h2_p, m2_p) = host_ms(
-        lambda: synth.comb_deemph_plain(window, y, buf, hist, demem))
-    d = ((pcm - pcm_p) * 32768.0).abs()
-    err = float(d.max())
-    n_diff = int((d > 0).sum())
-    hist_err = float((h2 - h2_p).abs().max())
-    print(f"K2 comb+deemph [{L}, {B}*960]: max|diff| {err:.0f} s16 LSB, "
-          f"{n_diff} of {d.numel()} samples differ (bound 1 LSB); comb "
-          f"history max|diff| {hist_err:.3e}")
-    check(err <= 1.0, f"K2 disagrees with its plain twin: {err} LSB")
-    ms = cuda_ms(lambda: synth.comb_deemph_cuda(window, y, buf, hist, demem),
-                 reps=5, warm=1)
-    # a comb of 3 taps x 2 (old and new filter, cross-faded) and the
-    # de-emphasis: ~16 flops a sample
-    b = bound(nbytes(y, buf[..., FRAME:], hist, demem, window, pcm, h2, m2),
-              16 * y.numel(), FP32_FLOPS)
-    print(f"K2 time {ms:.4f} ms, plain twin (chunked comb + blocked "
-          f"de-emphasis, torch ops on the card) {plain_ms:.1f} ms; bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}) {tag}")
-    return dict(name="k2_comb_deemph_s16", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None, **b)
+    return bufs, y, hist, demem, window
+
+
+def k2_phase(dev, tag):
+    """K2 at [12, 128·960] on two parameter sets: uniform random periods
+    15..1024 with 20 % zero gains, and the Opus sample's 16 frames of
+    parameters tiled to 128 (a quarter of its lane-frames have lags under
+    100); random spectra for both. Against the twin: PCM <= 1 LSB, hist'
+    equal, demem' within 1e-6 of the largest |demem'|; phase A's steps per
+    lane as synth.comb_steps counts them. Device time of each phase
+    (torch.profiler) and ns per dependent step of phase A's slowest lane."""
+    from iamf_tpu_torch.codecs.opus import synth
+
+    B, L = B_MAIN, LANES
+    bufs, y, hist, demem, window = k2_inputs(dev)
+    scratch = torch.empty(L * B * FRAME + L, device=dev)
+    row = dict(name="k2_comb_deemph_s16", max_abs_err=0.0, library_ms=None)
+    for name, buf in bufs.items():
+        pk = buf[..., FRAME:].cpu().numpy()
+
+        def k2():
+            return synth.comb_deemph_cuda(window, y, buf, hist, demem,
+                                          scratch)
+
+        pcm, h2, m2 = k2()
+        steps = scratch[L * B * FRAME:].view(torch.int32).cpu().numpy()
+        want = synth.comb_steps(pk)
+        plain_ms, (pcm_p, h2_p, m2_p) = host_ms(
+            lambda: synth.comb_deemph_plain(window, y, buf, hist, demem))
+        d = ((pcm - pcm_p) * 32768.0).abs()
+        err = float(d.max())
+        m_err = float((m2 - m2_p).abs().max())
+        m_tol = 1e-6 * max(1.0, float(m2_p.abs().max()))
+        print(f"K2 {name} [{L}, {B}*960]: max|diff| {err:.0f} s16 LSB, "
+              f"{int((d > 0).sum())} of {d.numel()} samples differ (bound 1 "
+              f"LSB); hist' equal {torch.equal(h2, h2_p)}; demem' max|diff| "
+              f"{m_err:.3e} (bound {m_tol:.3e}); phase A steps per lane "
+              f"{steps.tolist()}, the schedule's {want.tolist()}")
+        check(err <= 1.0, f"K2 disagrees with its plain twin: {err} LSB")
+        check(torch.equal(h2, h2_p), "K2's comb history differs")
+        check(m_err <= m_tol, f"K2's de-emphasis memory differs: {m_err}")
+        check(np.array_equal(steps, want), "K2's phase A steps differ")
+        ms = cuda_ms(k2)
+        dev_ms, per = device_ms(k2)
+        a = sum(v for k, v in per.items() if "comb_kernel" in k)
+        b_ = sum(v for k, v in per.items() if "deemph_kernel" in k)
+        print(f"K2 {name} time {ms:.4f} ms per call (the first design: "
+              f"{OLD_K2_MS} ms), device {dev_ms:.4f} ms: phase A (comb) "
+              f"{a:.4f} ms, phase B (de-emphasis + s16) {b_:.4f} ms; phase "
+              f"A's slowest lane {steps.max()} dependent steps (mean "
+              f"{steps.mean():.1f}), {a * 1e6 / steps.max():.1f} ns a step; "
+              f"plain twin (chunked comb + blocked de-emphasis, torch ops on "
+              f"the card) {plain_ms:.1f} ms {tag}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if name == "random":
+            # a comb of 3 taps x 2 (old and new filter, cross-faded) and
+            # the de-emphasis: ~16 flops a sample
+            b = bound(nbytes(y, buf[..., FRAME:], hist, demem, window, pcm,
+                             h2, m2), 16 * y.numel(), FP32_FLOPS)
+            print(f"K2 bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            row.update(ms=ms, plain_ms=plain_ms, **b)
+    return row
 
 
 def _loud_planar(n_total, nch, burst_lo, burst_hi):

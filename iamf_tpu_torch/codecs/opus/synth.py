@@ -6,12 +6,15 @@ buffer [B, L, 973] (``pack_params``); this module turns a batch of them
 into s16-granular PCM [B, L, 960]:
 
 - IMDCT + TDAC overlap: K1 (codecs/opus/imdct.py, csrc/imdct.cu);
-- comb post-filter + de-emphasis + s16 rounding: K2 (csrc/comb_deemph.cu).
+- comb post-filter + de-emphasis + s16 rounding: K2 (csrc/comb_deemph.cu),
+  two launches: the comb per lane on the schedule of ``comb_chunks``, then
+  the de-emphasis per (frame, lane).
 
 CUDA tensors run the kernels; CPU tensors run the plain twins below, which
 follow the reference's own formulation (chunked comb, blocked
-lower-triangular de-emphasis). The kernel's sequential de-emphasis and the
-blocked one differ by at most 1 s16 LSB (tpu_synth.py:266-270).
+lower-triangular de-emphasis). K2's comb is bit-exact with the twin's; its
+scanned de-emphasis and the blocked one differ by at most 1 s16 LSB
+(tests/k2_model.py models K2's order on the CPU).
 
 Only the CELT-960, one-frame-per-unit, non-hybrid operating point is
 ported; frames of 120/240/480, k > 1 and hybrid raise NotImplementedError
@@ -43,7 +46,7 @@ PK_G_OLD = 4   # 3 columns
 PK_G_CUR = 7   # 3 columns
 PK_G_NEW = 10  # 3 columns
 
-K2 = Kernel("iamf_k2_comb_deemph", [P, P, I, P, P, P, I, I, P, P, P])
+K2 = Kernel("iamf_k2_comb_deemph", [P, P, I, P, P, P, I, I, P, P, P, P])
 
 
 def pack_params(d: dict) -> np.ndarray:
@@ -254,9 +257,43 @@ def comb_deemph_plain(window, y, pk_buf, hist, demem):
     return pcm.contiguous(), hist2.contiguous(), demem2
 
 
-def comb_deemph_cuda(window, y, pk_buf, hist, demem):
+# K2 phase A's schedule: the segments of a frame with one comb lag set each
+SEGMENTS = ((0, 120), (120, 240), (240, FRAME))
+
+
+def comb_chunks(pk: np.ndarray) -> np.ndarray:
+    """K2 phase A's per-segment schedule: the chunk of each segment
+    ([0,120), [120,240), [240,960)) of each frame, [..., 3], from the
+    packed parameters pk [..., 13]. A segment reads t_old and t_cur (t_cur
+    alone when the sets are equal), t_cur and t_new (t_new alone), then
+    t_new; its chunk is the smallest of those lags whose gain triple is
+    nonzero, less 2, so every read with a nonzero coefficient lands on a
+    finished output. A segment whose gains are all zero is one step."""
+    t = pk[..., PK_T_OLD:PK_T_NEW + 1].astype(np.int64)
+    g = [pk[..., c:c + 3] for c in (PK_G_OLD, PK_G_CUR, PK_G_NEW)]
+    none = np.int64(1 << 30)
+    lag = [np.where(np.any(x != 0, axis=-1), t[..., i], none)
+           for i, x in enumerate(g)]
+    eq_oc = (t[..., 0] == t[..., 1]) & np.all(g[0] == g[1], axis=-1)
+    eq_cn = (t[..., 1] == t[..., 2]) & np.all(g[1] == g[2], axis=-1)
+    least = (np.where(eq_oc, lag[1], np.minimum(lag[0], lag[1])),
+             np.where(eq_cn, lag[2], np.minimum(lag[1], lag[2])),
+             lag[2])
+    return np.stack([np.where(m == none, s1 - s0, np.maximum(m - 2, 1))
+                     for m, (s0, s1) in zip(least, SEGMENTS)], axis=-1)
+
+
+def comb_steps(pk: np.ndarray) -> np.ndarray:
+    """Phase A's steps per lane (its dependent chain) for pk [B, L, 13]."""
+    lens = np.array([s1 - s0 for s0, s1 in SEGMENTS])
+    return (-(-lens // comb_chunks(pk))).sum(axis=(0, 2))
+
+
+def comb_deemph_cuda(window, y, pk_buf, hist, demem, scratch=None):
     """K2 on the card; pk_buf is the packed [B, L, 973] buffer, read in
-    place (parameter columns from 960 on)."""
+    place (parameter columns from 960 on). scratch: float32 [L·B·960 + L]
+    (allocated when None): phase A's comb output z, [L, B·960], then its
+    step count per lane (int32), read back by the tests and the smoke."""
     B, L, n = y.shape
     if (n != FRAME or pk_buf.shape[:2] != (B, L)
             or pk_buf.shape[2] < n + N_PARAMS or hist.shape != (L, HIST)
@@ -268,6 +305,8 @@ def comb_deemph_cuda(window, y, pk_buf, hist, demem):
     if any(t.dtype != torch.float32 for t in (y, pk_buf, hist, demem, window)):
         raise TypeError("K2 takes float32 tensors")
     y = y.contiguous()
+    if y.data_ptr() % 16:  # phase A copies rows in 16-byte pieces
+        y = y.clone()
     pk = pk_buf[..., n:]
     ld = pk.stride(1)
     if pk.stride(2) != 1 or pk.stride(0) != L * ld:
@@ -276,10 +315,16 @@ def comb_deemph_cuda(window, y, pk_buf, hist, demem):
     hist = hist.contiguous()
     demem = demem.contiguous()
     window = window.contiguous()
+    if scratch is None:
+        scratch = y.new_empty(L * B * n + L)
+    elif (scratch.shape != (L * B * n + L,) or scratch.dtype != torch.float32
+          or scratch.data_ptr() % 16):
+        raise ValueError(f"K2's scratch is float32 [{L * B * n + L}], "
+                         "16-byte aligned")
     pcm = torch.empty_like(y)
     hist2 = torch.empty_like(hist)
     demem2 = torch.empty_like(demem)
-    K2(y, pk, ld, hist, demem, window, B, L, pcm, hist2, demem2)
+    K2(y, pk, ld, hist, demem, window, B, L, scratch, pcm, hist2, demem2)
     return pcm, hist2, demem2
 
 

@@ -6,9 +6,11 @@ them on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Bounds: K1 0.25 at s16 scale (split-TF32 tensor-core product against
-the twin's fp32 torch.matmul); K2 1 s16 LSB (sequential vs blocked
-de-emphasis); K3 0 LSB and a bit-equal state (the walk keeps every
-rounding of the recurrence); the Opus sample decode 1 LSB against the golden;
+the twin's fp32 torch.matmul); K2 bit for bit against its CPU model
+(tests/k2_model.py), and against the twin hist' equal and 1 s16 LSB
+(scanned vs blocked de-emphasis); K3 0 LSB and a bit-equal state (the
+walk keeps every rounding of the recurrence); the Opus sample decode 1 LSB
+against the golden;
 K8 1e-4 at unit scale (direct-form fp32 sums against the twin's FFT
 convolution); K10 1e-5 (the same 64- or 128-tap fp32 dot products in
 another order); the binaural and 44.1 kHz decodes 1 LSB against the CPU
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import k2_model
 from iamf_tpu.constants import ChannelLayout
 from iamf_tpu_torch.codecs.opus import imdct, synth
 from iamf_tpu_torch.dsp import binaural, limiter, resample
@@ -71,21 +74,42 @@ def test_k1_matches_plain(dev, B, L, pattern, layout):
         assert (tail_d.cpu() - tail_c).abs().max() < 0.25
 
 
-def test_k2_matches_plain(dev):
-    rng = np.random.RandomState(1)
-    B, L = 3, 12
-    buf = np.zeros((B, L, 973), np.float32)
-    buf[..., 961:964] = rng.randint(15, 1025, size=(B, L, 3))
-    buf[..., 964:973] = rng.rand(B, L, 9) * 0.3
-    y = rng.randn(B, L, 960).astype(np.float32) * 3000
-    hist = rng.randn(L, synth.HIST).astype(np.float32) * 3000
-    demem = rng.randn(L).astype(np.float32) * 100
-    w = torch.from_numpy(synth.window120().copy())
-    args = [torch.from_numpy(a) for a in (y, buf, hist, demem)]
-    pcm, h2, m2 = synth.comb_deemph(w.to(dev), *(a.to(dev) for a in args))
-    pcm_p, h2_p, m2_p = synth.comb_deemph(w, *args)
-    assert ((pcm.cpu() - pcm_p) * 32768).abs().max() <= 1
-    assert torch.equal(h2.cpu(), h2_p)  # the comb itself is bit-exact
+@pytest.mark.parametrize("case", sorted(k2_model.CASES))
+def test_k2_matches_plain(dev, case):
+    """K2 chained over the case's batches (tests/k2_model.py: the sample's
+    spectra and parameters, lags 15..20, all-zero-gain frames, a period
+    change across a batch edge, B = 1, uniform random lags): bit for bit
+    to the CPU model that follows its order (PCM, z, hist', demem', phase
+    A's steps); hist' equal to the twin's, PCM <= 1 LSB and demem' within
+    k2_model.DEMEM_REL of it."""
+    batches, hist, demem = k2_model.inputs(case)
+    window = synth.window120().astype(np.float32)
+    w_d, w_c = torch.from_numpy(window).to(dev), torch.from_numpy(window)
+    h_d, m_d = torch.from_numpy(hist).to(dev), torch.from_numpy(demem).to(dev)
+    h_c, m_c = torch.from_numpy(hist), torch.from_numpy(demem)
+    for y, pk in batches:
+        B, L, _ = y.shape
+        buf = torch.from_numpy(np.concatenate([np.zeros_like(y), pk], -1))
+        pcm_m, hist_m, demem_m, z_m, steps_m = k2_model.k2(
+            window, y, pk, h_d.cpu().numpy(), m_d.cpu().numpy())
+        scratch = torch.empty(L * B * 960 + L, device=dev)
+        launches = synth.K2.launches
+        pcm, h_d, m_d = synth.comb_deemph_cuda(
+            w_d, torch.from_numpy(y).to(dev), buf.to(dev), h_d, m_d, scratch)
+        assert synth.K2.launches == launches + 1
+        pcm_p, h_c, m_c = synth.comb_deemph(w_c, torch.from_numpy(y), buf,
+                                            h_c, m_c)
+        z = scratch[:L * B * 960].view(L, B * 960).cpu().numpy()
+        assert np.array_equal(z, z_m)
+        assert np.array_equal(scratch[L * B * 960:].view(torch.int32).cpu()
+                              .numpy(), steps_m)
+        assert np.array_equal(pcm.cpu().numpy(), pcm_m)
+        assert np.array_equal(h_d.cpu().numpy(), hist_m)
+        assert np.array_equal(m_d.cpu().numpy(), demem_m)
+        assert torch.equal(h_d.cpu(), h_c)  # the comb itself is bit-exact
+        assert ((pcm.cpu() - pcm_p) * 32768).abs().max() <= 1
+        tol = k2_model.DEMEM_REL * max(1.0, float(m_c.abs().max()))
+        assert (m_d.cpu() - m_c).abs().max() <= tol
 
 
 def _k3_chain(dev, cfg, st, xs):
