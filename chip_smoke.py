@@ -27,12 +27,14 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
   4. PCM at the bench's size: 30 s of 7.1.4 PCM -> sound system J at
      batch_frames=128, and a short loud stream that engages the limiter,
      each against this package's own CPU run; realtime factors;
-  5. kernels of the output paths: K8 (HRTF convolution) at B=128 and B=3
-     with 12- and 10-channel beds and a live overlap carry, K10 (resampler)
-     over 30 s of 12 channels at 44.1 kHz and on short 16/32/96 kHz inputs,
-     and K3 over the whole resampled stream, against their plain twins,
-     with times per call (CUDA events) and device times (torch.profiler);
-     K8 also against its one-call yardstick, F.conv1d;
+  5. kernels of the output paths: K8 (HRTF convolution, overlap-save
+     FFTs) at B=128 and B=3 with 12- and 10-channel beds and a live overlap
+     carry, K10 (resampler) over 30 s of 12 channels at 44.1 kHz and on
+     short 16/32/96/22.05/11.025/88.2 kHz inputs, and K3 over the whole
+     resampled stream, against their plain twins, with times per call
+     (CUDA events) and device times (torch.profiler); K8 and K10 also
+     against their one-call yardsticks (F.conv1d), and K10 against the
+     output of another tree where perf/k8_k10.py saved one;
   6. binaural at full width: 30 s of 7.1.4 PCM with headphones rendering
      mode 1 (M2B, 12-channel bed) at batch_frames=128, limiter on, against
      the CPU run, with its realtime factor, K8's launches and a profiler
@@ -581,21 +583,30 @@ def _twin_times(tag, name, fast, plain, reps=20, plain_reps=20):
     return ms, plain_ms
 
 
-def k8_phase(dev, tag):
+def k8_inputs(C, B, dev):
+    """K8's inputs for a C-channel bed (12: 7.1.4, 10: 7.1.2) of B frames:
+    (the layout's Hrir for batches of B, x [C, B*960], a live carry)."""
     from iamf_tpu_torch.tools import streams
     from iamf_tpu_torch.dsp import binaural
 
-    L = streams.ChannelLayout
+    layout = {12: streams.ChannelLayout.L714,
+              10: streams.ChannelLayout.L712}[C]
+    rng = np.random.RandomState(C * 1000 + B)
+    h = binaural.hrir_for_batch(binaural.hrir_bank(layout), B, FRAME, dev)
+    x = torch.from_numpy((rng.randn(C, B * FRAME) * 0.3).astype(
+        np.float32)).to(dev)
+    ov = torch.from_numpy((rng.randn(2, 255) * 0.1).astype(
+        np.float32)).to(dev)
+    return h, x, ov
+
+
+def k8_phase(dev, tag):
+    from iamf_tpu_torch.dsp import binaural
+
     row = dict(name="k8_hrtf_conv", max_abs_err=0.0)
-    for C, layout in ((12, L.L714), (10, L.L712)):
-        bank = binaural.hrir_bank(layout)
+    for C in (12, 10):
         for B in (B_MAIN, 3):
-            rng = np.random.RandomState(C * 1000 + B)
-            h = binaural.hrir_for_batch(bank, B, FRAME, dev)
-            x = torch.from_numpy((rng.randn(C, B * FRAME) * 0.3).astype(
-                np.float32)).to(dev)
-            ov = torch.from_numpy((rng.randn(2, 255) * 0.1).astype(
-                np.float32)).to(dev)
+            h, x, ov = k8_inputs(C, B, dev)
             y, o = binaural.hrtf_conv_cuda(h, x, ov)
             y_p, o_p = binaural.hrtf_conv_plain(h, x, ov)
             torch.cuda.synchronize()
@@ -608,8 +619,6 @@ def k8_phase(dev, tag):
                 tag, f"K8 [C={C}, B={B}]",
                 lambda: binaural.hrtf_conv_cuda(h, x, ov),
                 lambda: binaural.hrtf_conv_plain(h, x, ov))
-            gfma = 2 * C * 256 * B * FRAME / 1e9
-            print(f"K8 [C={C}, B={B}]: {gfma / ms:.2f} T FMA/s per call")
             row["max_abs_err"] = max(row["max_abs_err"], err)
             if (C, B) == (LANES, B_MAIN):
                 ops = fft_conv_ops(C, 2, B * FRAME, 256)
@@ -617,7 +626,7 @@ def k8_phase(dev, tag):
                 lib_ms = k8_library(tag, h, x, ov, y_p, o_p)
                 print(f"K8 bound [C={C}, B={B}] {b['bound_ms']:.4f} ms "
                       f"({b['bound_by']}; {ops / 1e6:.1f} M flops by FFT, "
-                      f"{2 * gfma * 1e3:.1f} M direct)")
+                      f"{4 * C * 256 * B * FRAME / 1e6:.1f} M direct)")
                 row.update(ms=ms, plain_ms=plain, library_ms=lib_ms, **b)
     return row
 
@@ -666,17 +675,70 @@ def k8_library(tag, h, x, ov, y_p, o_p):
     return ms
 
 
+def k10_inputs(rate, secs, dev):
+    """K10's inputs: (the rate's plan, x [12, rate * secs] at 0.3 RMS)."""
+    from iamf_tpu_torch.dsp import resample
+
+    rng = np.random.RandomState(rate % 1009)
+    x = torch.from_numpy((rng.randn(LANES, int(rate * secs)) * 0.3).astype(
+        np.float32)).to(dev)
+    return resample.ResamplePlan(rate, 48000, device=dev), x
+
+
+# K10's output at 44.1 kHz, 30 s x 12 ch, from a tree that
+# `perf/k8_k10.py times --tree DIR --save` timed (e.g. the parent commit)
+K10_PARENT = os.path.join(ROOT, "perf", "build", "k10_parent.pt")
+
+
+def k10_library(tag, plan, x, y_p):
+    """The one PyTorch call computing K10's function: F.conv1d (cuDNN,
+    fp32, TF32 off) with stride num of the zero-padded input, channels as
+    the batch, into den output channels, one per output phase r, each
+    holding its bank row at a_r = num*r // den (the output is periodic:
+    y[c, den*m + r] = sum_f xz[c, num*m + D + a_r + f] bank[(num*r) % den,
+    f]); a transpose and the clip follow, untimed. Checked against K10's
+    twin first; returns its ms per call (CUDA events)."""
+    import torch.nn.functional as F
+
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+    num, den, N = plan.num, plan.den, plan.N
+    a = num * np.arange(den) // den
+    w = np.zeros((den, 1, int(a.max()) + N), np.float32)
+    bank = plan.bank.cpu().numpy()
+    for r in range(den):
+        w[r, 0, a[r]:a[r] + N] = bank[(num * r) % den]
+    w = torch.from_numpy(w).to(x.device)
+    C, T = x.shape
+    n = y_p.shape[1]
+    m = -(-n // den)
+    right = max(0, num * (m - 1) + plan.lead + w.shape[2] - T)
+    xz = F.pad(x, (-plan.lead, right))[:, None]  # plan.lead < 0
+
+    def conv():
+        return F.conv1d(xz, w, stride=num)
+
+    y = conv().transpose(1, 2).reshape(C, -1)[:, :n].clamp(-1.0, 1.0)
+    err = float((y - y_p).abs().max())
+    print(f"F.conv1d yardstick for K10 [{den} phases x {w.shape[2]} taps, "
+          f"stride {num}]: max|diff| vs twin {err:.3e} (bound 1e-5)")
+    check(err <= 1e-5, f"F.conv1d disagrees with K10's twin: {err}")
+    ms = cuda_ms(conv)
+    dev_ms, per = device_ms(conv)
+    top = max(per, key=per.get) if per else "none"
+    print(f"F.conv1d [{C}, {T}] -> [{C}, {den}, {m}]: {ms:.4f} ms per "
+          f"call, device {dev_ms:.4f} ms ({top[:60]}) {tag}")
+    return ms
+
+
 def k10_k3_phase(dev, tag):
     from iamf_tpu_torch.dsp import limiter, resample
 
     row = dict(name="k10_resample", max_abs_err=0.0)
     for rate, secs in ((44100, 30.0), (16000, 0.5), (32000, 0.5),
-                       (96000, 0.5)):
-        rng = np.random.RandomState(rate % 1009)
-        n_in = int(rate * secs)
-        x = torch.from_numpy((rng.randn(LANES, n_in) * 0.3).astype(
-            np.float32)).to(dev)
-        plan = resample.ResamplePlan(rate, 48000, device=dev)
+                       (96000, 0.5), (22050, 0.5), (11025, 0.5),
+                       (88200, 0.5)):
+        plan, x = k10_inputs(rate, secs, dev)
+        n_in = x.shape[1]
         y = resample.resample_cuda(plan, x)
         y_p = resample.resample_plain(plan, x)
         torch.cuda.synchronize()
@@ -693,12 +755,19 @@ def k10_k3_phase(dev, tag):
             plain_reps=5 if main else 20)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if main:
-            # 64 taps a phase: a multiply-add per tap and output
-            b = bound(nbytes(x, y, plan.W), 2 * plan.N * y.numel(),
+            # bytes: the input, the output and the per-phase bank; 64 taps
+            # a phase: a multiply-add per tap and output
+            b = bound(nbytes(x, y, plan.bank), 2 * plan.N * y.numel(),
                       FP32_FLOPS)
+            lib_ms = k10_library(tag, plan, x, y_p)
             print(f"K10 bound [{rate}, {secs} s] {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']})")
-            row.update(ms=ms, plain_ms=plain, library_ms=None, **b)
+            if os.path.exists(K10_PARENT):
+                y0 = torch.load(K10_PARENT).to(dev)
+                print(f"K10 [{rate}, {secs} s] equal to the output of "
+                      f"perf/k8_k10.py's other tree: {torch.equal(y, y0)} "
+                      f"(max|diff| {float((y - y0).abs().max()):.3e})")
+            row.update(ms=ms, plain_ms=plain, library_ms=lib_ms, **b)
 
     # K3 over a whole resampled stream, as the resample tail calls it:
     # 30 s at 48 kHz plus the delay_size drain, one call; a sine bed with a

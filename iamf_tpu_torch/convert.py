@@ -20,7 +20,7 @@ import torch
 
 from .codecs.opus.synth import SynthCarry
 from .core.pipeline import ElementSpec, PipelineConfig
-from .dsp.binaural import Hrir, batch_seg_plan
+from .dsp.binaural import batch_seg_plan, hrir_for_batch
 from .dsp.demix import DemixSpec
 from .dsp.limiter import LimiterConfig, check_reachable_tc
 
@@ -62,11 +62,10 @@ def stream_params(params: dict, device, cfg=None) -> dict:
         hri = np.asarray(hri)
         spec = (hri[0] + 1j * hri[1]).astype(np.complex64)
         taps = cfg.elements[i].hrtf_taps
-        seg, n, _ = batch_seg_plan(cfg.batch_frames, cfg.frame_size, taps)
+        _, n, _ = batch_seg_plan(cfg.batch_frames, cfg.frame_size, taps)
         bank = np.fft.irfft(spec, n=n, axis=2)[..., :taps]
-        out["hrir"][i] = Hrir(bank=_t(bank, device, np.float32),
-                              spec=_t(spec, device, np.complex64),
-                              seg=seg, n_fft=n)
+        out["hrir"][i] = hrir_for_batch(bank, cfg.batch_frames,
+                                        cfg.frame_size, device, spec=spec)
     return out
 
 

@@ -26,7 +26,8 @@ normalization gain, the limiter (K3, one call over the stream and its
 drain) or plain quantization, and one copy to the host.
 
 Not ported yet, and raising NotImplementedError: other Opus operating
-points, SILK and hybrid included (ROADMAP.md §1 item 5), AAC (item 6) and
+points, SILK and hybrid included (ROADMAP.md §1 item 5), AAC (item 6),
+true-peak metering (IAMF_TRUEPEAK=1 with the device limiter, item 9) and
 mid-stream reconfigure segments (item 10).
 """
 
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -379,6 +381,7 @@ class BatchedStreamDecoder:
             ),
             limiter=LimiterConfig(
                 channels=out_ch,
+                true_peak=os.environ.get("IAMF_TRUEPEAK") == "1",
                 **({"threshold_db": peak_threshold_db}
                    if peak_threshold_db is not None else {}),
             ) if device_limiter else None,

@@ -13,9 +13,10 @@ ov [2, taps-1] (iamf_tpu/core/pipeline.py:267-320):
     ov'[e, j] = sum_c sum_{k > j} h[e, c, k] * x[c, N + j - k]
 
 with x zero before 0 and after N. ``hrtf_conv`` runs K8
-(csrc/hrtf_conv.cu, the direct form) on a CUDA tensor and the plain twin on
-a CPU tensor: the JAX package's segmented overlap-add (rfft at
-batch_seg_plan's length, a [2, C] complex contraction, irfft, each
+(csrc/hrtf_conv.cu, an overlap-save FFT convolution written by hand, its
+tables from ``k8_spectra`` and ``k8_twiddles``) on a CUDA tensor and the
+plain twin on a CPU tensor: the JAX package's segmented overlap-add (rfft
+at batch_seg_plan's length, a [2, C] complex contraction, irfft, each
 segment's tail added into the next one).
 
 The serial per-frame HRTFRenderer is not ported (ROADMAP.md §1 item 12).
@@ -65,7 +66,9 @@ CHANNEL_DIRECTIONS = {
     CH.HBR: (-135.0, 35.0),
 }
 
-K8 = Kernel("iamf_k8_hrtf_conv", [P, I, I, P, I, P, P, P])
+K8 = Kernel("iamf_k8_hrtf_conv", [P, I, I, P, P, I, I, I, P, P, P])
+K8_FFT = 1024   # FFT length of K8's blocks (csrc/hrtf_conv.cu F)
+K8_PART = 512   # K8's longest filter part (MAX_PART)
 
 
 def spherical_head_hrir(
@@ -215,29 +218,79 @@ def batch_seg_plan(B: int, T: int, taps: int) -> tuple[int, int, int]:
             return seg, fft_conv_len(seg + taps - 1), B // g
 
 
+def k8_partition(taps: int) -> tuple[int, int]:
+    """(parts, lp) of K8's plan: the filter cut into `parts` parts of lp <=
+    K8_PART taps (zero-padded), so that a block of K8_FFT points yields
+    K8_FFT - lp + 1 outputs whatever the filter's length."""
+    parts = -(-taps // K8_PART)
+    return parts, -(-taps // parts)
+
+
+@functools.lru_cache(maxsize=None)
+def k8_twiddles() -> np.ndarray:
+    """K8's twiddles, float32 [K8_FFT + 16, 2] (re, im): W^(n1 k2) at
+    32 k2 + n1 (n1, k2 < 32; W = exp(-2 pi i / K8_FFT)), then
+    exp(-2 pi i k / 32) for k < 16; computed in float64, then rounded."""
+    n = np.arange(32)
+    e = np.concatenate([np.outer(n, n).ravel() / K8_FFT, n[:16] / 32])
+    w = np.exp(-2j * np.pi * e)
+    return np.stack([w.real, w.imag], -1).astype(np.float32)
+
+
+def k8_spectra(bank: np.ndarray) -> np.ndarray:
+    """K8's filter table for a [2, C, taps] bank: float32 [parts,
+    ceil(C/2), K8_FFT, 4], per part p and channel pair (a, b) = (2q,
+    2q + 1) the bins of P = (G_a - i G_b) / 2F and Q = (G_a + i G_b) / 2F
+    as (P.re, P.im, Q.re, Q.im), where G_c is the F-point DFT of part p of
+    h_L,c + i h_R,c (zero-padded; G_b = 0 past the last channel).
+    Computed in float64, then rounded."""
+    _, C, taps = bank.shape
+    parts, lp = k8_partition(taps)
+    F = K8_FFT
+    h = np.zeros((2, C + C % 2, parts * lp))
+    h[:, :C, :taps] = bank
+    g = np.fft.fft((h[0] + 1j * h[1]).reshape(-1, parts, lp), n=F, axis=2)
+    g = g.reshape(-1, 2, parts, F).transpose(2, 0, 1, 3)  # [p, q, a|b, F]
+    ga, gb = g[:, :, 0], g[:, :, 1]
+    pm, qm = (ga - 1j * gb) / (2 * F), (ga + 1j * gb) / (2 * F)
+    return np.stack([pm.real, pm.imag, qm.real, qm.imag], -1).astype(
+        np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class Hrir:
-    """One element's HRIRs on a device: the time-domain bank [2, C, taps]
-    for K8, and its rfft at batch_seg_plan's length for the plain twin."""
+    """One element's HRIRs on a device: the time-domain bank [2, C, taps],
+    K8's tables (``k8_spectra``, ``k8_twiddles``), and the bank's rfft at
+    batch_seg_plan's length for the plain twin."""
 
     bank: torch.Tensor  # float32 [2, C, taps]
     spec: torch.Tensor  # complex64 [2, C, n_fft // 2 + 1]
     seg: int
     n_fft: int
+    pq: torch.Tensor  # float32 [parts, ceil(C/2), K8_FFT, 4]
+    tw: torch.Tensor  # float32 [K8_FFT + 16, 2]
 
     @property
     def taps(self) -> int:
         return self.bank.shape[2]
 
 
-def hrir_for_batch(bank: np.ndarray, B: int, T: int, device) -> Hrir:
-    """Hrir of a [2, C, taps] bank for batches of B frames of T samples."""
+def hrir_for_batch(bank: np.ndarray, B: int, T: int, device,
+                   spec: np.ndarray | None = None) -> Hrir:
+    """Hrir of a [2, C, taps] bank for batches of B frames of T samples;
+    `spec`, when given, is the twin's spectrum as it is (the JAX
+    package's, through convert.stream_params)."""
     taps = bank.shape[2]
     seg, n, _ = batch_seg_plan(B, T, taps)
-    spec = np.fft.rfft(bank, n=n, axis=2).astype(np.complex64)
-    return Hrir(bank=torch.from_numpy(np.ascontiguousarray(
-        bank, np.float32)).to(device),
-        spec=torch.from_numpy(spec).to(device), seg=seg, n_fft=n)
+    if spec is None:
+        spec = np.fft.rfft(bank, n=n, axis=2)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return Hrir(bank=put(bank, np.float32), spec=put(spec, np.complex64),
+                seg=seg, n_fft=n, pq=put(k8_spectra(bank), np.float32),
+                tw=put(k8_twiddles(), np.float32))
 
 
 def hrtf_conv_plain(hrir: Hrir, x, overlap):
@@ -270,11 +323,12 @@ def hrtf_conv_cuda(hrir: Hrir, x, overlap):
             f"K8 takes float32 x [C, N], bank [2, C, taps >= 2] and overlap "
             f"[2, taps-1]; got x {x.dtype} {list(x.shape)}, bank "
             f"{bank.dtype} {list(bank.shape)}, overlap {list(overlap.shape)}")
+    parts, lp = k8_partition(taps)
     x = x.contiguous()
     overlap = overlap.contiguous().to(torch.float32)
     y = torch.empty((2, N), dtype=torch.float32, device=x.device)
     ov = torch.empty((2, taps - 1), dtype=torch.float32, device=x.device)
-    K8(x, C, N, bank.contiguous(), taps, overlap, y, ov)
+    K8(x, C, N, hrir.pq, hrir.tw, taps, parts, lp, overlap, y, ov)
     return y, ov
 
 

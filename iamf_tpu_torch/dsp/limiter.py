@@ -24,8 +24,8 @@ State (a dict of tensors; core/pipeline.py carries it across batches):
                target_end_gain, current_tc (-1 = idle)
   delay_data:  [C, D] delay line;  peak_data: [D] peak ring
   entry_index: int32 [1], ring slot of the oldest entry
-Only sample-peak metering is ported; true_peak raises NotImplementedError
-(ROADMAP.md §1 item 9).
+Only sample-peak metering is ported: a LimiterConfig with true_peak raises
+NotImplementedError (ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
@@ -60,6 +60,12 @@ class LimiterConfig:
     delay_size: int = LIMITER_LOOKAHEAD
     true_peak: bool = False  # USE_TRUEPEAK branch: not ported
 
+    def __post_init__(self):
+        if self.true_peak:
+            raise NotImplementedError(
+                "true-peak limiter metering is not ported yet (ROADMAP.md "
+                "§1 item 9)")
+
     @property
     def linear_threshold(self) -> float:
         return float(10.0 ** (self.threshold_db / 20.0))
@@ -69,15 +75,7 @@ class LimiterConfig:
         return 1.0 / self.sample_rate
 
 
-def _require_sample_peak(cfg: LimiterConfig) -> None:
-    if cfg.true_peak:
-        raise NotImplementedError(
-            "true-peak limiter metering is not ported yet (ROADMAP.md §1 "
-            "item 9)")
-
-
 def init_state(cfg: LimiterConfig, device) -> dict:
-    _require_sample_peak(cfg)
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "env": torch.tensor([1.0, -1.0, -1.0, -1.0], **f32),
@@ -89,7 +87,6 @@ def init_state(cfg: LimiterConfig, device) -> dict:
 
 def input_peaks(cfg: LimiterConfig, x):
     """Per-sample channel-max magnitudes feeding the peak ring. x: [C, T]."""
-    _require_sample_peak(cfg)
     return torch.amax(torch.abs(x), dim=0)
 
 
@@ -293,7 +290,6 @@ def limit_plain(cfg: LimiterConfig, state: dict, x, frame: int):
 
 def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
     """K3 on the card: x [C, N] -> (state', pcm [N, C] int)."""
-    _require_sample_peak(cfg)
     C, N = x.shape
     D = cfg.delay_size
     if C != cfg.channels or x.dtype != torch.float32 or N < 1:

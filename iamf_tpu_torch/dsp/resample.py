@@ -19,10 +19,19 @@ j // out_chunk + 1) is
     y[c, j] = clip(sum_f xz[c, s*in_chunk - carry_len + win_start[o] + f]
                    * W[o, f], -1, 1)
 
-with xz the input with zeros outside [0, T_in). ``resample_stream`` runs
-K10 (csrc/resample.cu, one launch over the whole stream) on a CUDA tensor,
-and on a CPU tensor the plain twin, which mirrors _resample_scan chunk by
-chunk (gather the windows, contract, clip).
+with xz the input with zeros outside [0, T_in). The row W[o] depends only
+on the phase (num*o) % den, so the plan keeps the per-phase bank [den, N]
+(``ResamplePlan.bank``), and the output is periodic: with
+D = in_chunk - carry_len,
+
+    y[c, j] = clip(sum_f xz[c, floor(num*j / den) + D + f]
+                   * bank[(num*j) % den, f], -1, 1)
+
+``resample_stream`` runs K10 (csrc/resample.cu, one launch over the whole
+stream) on a CUDA tensor: tiles of K10_R consecutive outputs share one
+input window, their rows shifted into it and zero-padded (``k10_tiles``).
+On a CPU tensor the plain twin mirrors _resample_scan chunk by chunk
+(gather the windows, contract, clip).
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ import torch
 
 from ..kernels.build import I, Kernel, P
 
-K10 = Kernel("iamf_k10_resample", [P, I, I, P, P, I, I, I, I, P, I])
+K10 = Kernel("iamf_k10_resample", [P, I, I, P, P, I, I, I, I, I, P, I])
+K10_R = 4  # consecutive outputs in a tile of K10 (csrc/resample.cu R)
 
 QUALITY = 4  # the reference's speexdsp quality (IAMF_decoder.c:57)
 TARGET_CHUNK = 8192  # inputs per chunk, rounded down to a multiple of num
@@ -209,10 +219,38 @@ def _chunk_rows(in_rate: int, out_rate: int):
             np.asarray(W, np.float32))
 
 
+def k10_tiles(num: int, den: int, bank: np.ndarray):
+    """K10's tiles over a [den, N] per-phase bank. Outputs go in tiles of
+    R = K10_R consecutive ones; the pattern repeats every L = lcm(R, den)
+    outputs (a super-period), which read num*L/den inputs. Output
+    j = L*M + R*u + i reads its window at floor(num*j / den) + D =
+    (num*L/den)*M + start[u] + delta[u, i] + D, so tile u's outputs share
+    the window at start[u] and each one's row sits in it at its delta:
+
+        rows[u, delta[u, i] + f, i] = bank[(num*(R*u + i)) % den, f]
+
+    zero elsewhere (NE = N + max delta taps). Returns (rows float32
+    [L/R, NE, R], start int32 [L/R], inputs per super-period, L)."""
+    R = K10_R
+    L = R * den // math.gcd(R, den)
+    k = np.arange(L).reshape(-1, R)
+    a = num * k // den
+    start = a[:, 0]
+    delta = a - start[:, None]
+    N = bank.shape[1]
+    rows = np.zeros((L // R, N + int(delta.max()), R), np.float32)
+    u, i = np.meshgrid(np.arange(L // R), np.arange(R), indexing="ij")
+    f = np.arange(N)
+    rows[u[..., None], delta[..., None] + f, i[..., None]] = \
+        bank[(num * k) % den]
+    return rows, start.astype(np.int32), num * L // den, L
+
+
 class ResamplePlan:
     """DeviceResampler's host precompute, put on `device`: per-output
-    filter rows W [out_chunk, N] (and their transpose for K10), window
-    starts win_start [out_chunk], and the chunk geometry."""
+    filter rows W [out_chunk, N] and window starts win_start [out_chunk]
+    for the plain twin, the chunk geometry, the per-phase bank [den, N]
+    (bank[(num*o) % den] = W[o]) and K10's tiles of it (``k10_tiles``)."""
 
     def __init__(self, in_rate: int, out_rate: int, *, device):
         (self.host_params, self.in_chunk, self.out_chunk, self.carry_len,
@@ -221,7 +259,18 @@ class ResamplePlan:
         self.N = self.host_params.filt_len
         self.win_start = torch.from_numpy(win_start).to(device)
         self.W = torch.from_numpy(W).to(device)
-        self.Wt = self.W.T.contiguous()  # [N, out_chunk]: K10's coalesced rows
+        bank = W[:self.den][np.argsort((self.num * np.arange(self.den))
+                                       % self.den)]
+        self.bank = torch.from_numpy(bank).to(device)
+        rows, start, self.tile_inputs, self.tile_outputs = k10_tiles(
+            self.num, self.den, bank)
+        self.rows = torch.from_numpy(rows).to(device)
+        self.tile_start = torch.from_numpy(start).to(device)
+
+    @property
+    def lead(self) -> int:
+        """D: the first output's window starts D inputs after input 0."""
+        return self.in_chunk - self.carry_len
 
     @property
     def input_latency(self) -> int:
@@ -264,8 +313,9 @@ def resample_cuda(plan: ResamplePlan, x):
     x = x.contiguous()
     want = plan.n_out(T)
     y = torch.empty((C, want), dtype=torch.float32, device=x.device)
-    K10(x, C, T, plan.Wt, plan.win_start, plan.N, plan.in_chunk,
-        plan.out_chunk, plan.carry_len, y, want)
+    K10(x, C, T, plan.rows, plan.tile_start, plan.rows.shape[0],
+        plan.rows.shape[1], plan.tile_inputs, plan.tile_outputs, plan.lead,
+        y, want)
     return y
 
 

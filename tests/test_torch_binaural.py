@@ -5,7 +5,9 @@ True) against iamf_tpu's.
 
 Bounds: decoded PCM <= 1 s16 LSB (the repo's batched-vs-serial bar); the
 twin against np.convolve <= 1e-4 at unit scale (the JAX package's own
-bound for its FFT convolution, tests/test_binaural.py).
+bound for its FFT convolution, tests/test_binaural.py); K8's numpy model
+(tests/k8_model.py) against np.convolve and the twin <= 1e-5 (float32
+FFTs of 1024 points: a few 1e-7 measured).
 """
 
 import numpy as np
@@ -14,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+import k8_model
 import vectors
 from iamf_tpu.constants import ChannelLayout
 from iamf_tpu.core import batch_decoder as jbd
@@ -190,3 +193,85 @@ def test_convert_binaural_state():
         assert (h.seg, h.n_fft, h.taps) == (mine.seg, mine.n_fft, mine.taps)
         assert np.abs(h.bank.numpy() - mine.bank.numpy()).max() < 1e-6
         assert np.abs(h.spec.numpy() - mine.spec.numpy()).max() < 1e-5
+
+
+def _k8_chain(bank, x, ov, n, conv):
+    """x [C, 3n] through `conv` in three blocks of n samples, the carry
+    chained from ov: (y [2, 3n], the last carry)."""
+    ys = []
+    for b in range(3):
+        y, ov = conv(x[:, b * n:(b + 1) * n], ov)
+        ys.append(np.asarray(y))
+    return np.concatenate(ys, 1), np.asarray(ov)
+
+
+K8_BEDS = {2: ChannelLayout.STEREO, 6: ChannelLayout.L510,
+           12: ChannelLayout.L714}
+
+
+@pytest.mark.parametrize("N", [1, 100, 1025, 3 * 960])
+@pytest.mark.parametrize("C", sorted(K8_BEDS))
+def test_k8_model_matches_direct_and_twin(C, N):
+    """K8's plan (numpy model) over three blocks of N samples with a live
+    carry, against the float64 direct convolution of the whole signal
+    (the carry added at its head) and, where the twin's segmented
+    overlap-add takes the block (N >= taps - 1), against the twin."""
+    bank = binaural.hrir_bank(K8_BEDS[C])
+    rng = np.random.RandomState(C * 10000 + N)
+    x = (rng.randn(C, 3 * N) * 0.3).astype(np.float32)
+    ov = (rng.randn(2, 255) * 0.1).astype(np.float32)
+    got, ov_m = _k8_chain(bank, x, ov, N,
+                          lambda xb, o: k8_model.k8(bank, xb, o))
+    full = _direct(np.pad(x, ((0, 0), (0, 255))), bank, 3 * N + 255)
+    full[:, :255] += ov
+    assert np.abs(got - full[:, :3 * N]).max() < 1e-5
+    assert np.abs(ov_m - full[:, 3 * N:]).max() < 1e-5
+    if N >= 255:
+        hrir = binaural.hrir_for_batch(bank, 1, N, "cpu")
+        want, ov_t = _k8_chain(
+            bank, torch.from_numpy(x), torch.from_numpy(ov), N,
+            lambda xb, o: binaural.hrtf_conv_plain(hrir, xb, o))
+        assert np.abs(got - want).max() < 1e-5
+        assert np.abs(ov_m - ov_t).max() < 1e-5
+
+
+@pytest.mark.parametrize("taps", [64, 512, 513, 2048, 5632])
+def test_k8_model_filter_lengths(taps):
+    """The partitioned plan (parts of at most 512 taps, so any length
+    goes through the same FFT path): one part up to 512, two from 513,
+    eleven at 5632; against float64, with blocks shorter than the
+    filter."""
+    bank = binaural.hrir_bank(ChannelLayout.L510, taps=taps)
+    parts, lp = binaural.k8_partition(taps)
+    assert parts * lp >= taps > (parts - 1) * lp and lp <= binaural.K8_PART
+    rng = np.random.RandomState(taps)
+    N = 700
+    x = (rng.randn(6, 3 * N) * 0.3).astype(np.float32)
+    ov = (rng.randn(2, taps - 1) * 0.1).astype(np.float32)
+    got, ov_m = _k8_chain(bank, x, ov, N,
+                          lambda xb, o: k8_model.k8(bank, xb, o))
+    full = _direct(np.pad(x, ((0, 0), (0, taps - 1))), bank,
+                   3 * N + taps - 1)
+    full[:, :taps - 1] += ov
+    assert np.abs(got - full[:, :3 * N]).max() < 1e-5
+    assert np.abs(ov_m - full[:, 3 * N:]).max() < 1e-5
+
+
+def test_k8_tables():
+    """k8_twiddles is W^(n1 k2) and W_32^k rounded from float64;
+    k8_spectra's P and Q give back each pair's two channel spectra
+    (P + Q = G_a / F, Q - P = i G_b / F), part by part."""
+    tw = binaural.k8_twiddles()
+    w = tw[:, 0] + 1j * tw[:, 1]
+    n = np.arange(32)
+    assert np.abs(w[:1024].reshape(32, 32) - np.exp(
+        -2j * np.pi * np.outer(n, n) / 1024)).max() < 1e-7
+    assert np.abs(w[1024:] - np.exp(-2j * np.pi * n[:16] / 32)).max() < 1e-7
+    bank = binaural.hrir_bank(ChannelLayout.L712, taps=600)  # C = 10
+    pq = binaural.k8_spectra(bank).astype(np.float64)
+    assert pq.shape == (2, 5, 1024, 4)  # parts of 300 taps, 5 pairs
+    P, Q = pq[..., 0] + 1j * pq[..., 1], pq[..., 2] + 1j * pq[..., 3]
+    g = np.fft.fft((bank[0] + 1j * bank[1]).reshape(10, 2, 300), n=1024)
+    F = 1024
+    assert np.abs((P + Q) * F - g[0::2].transpose(1, 0, 2)).max() < 1e-5
+    assert np.abs((Q - P) * F / 1j - g[1::2].transpose(1, 0, 2)).max() < 1e-5

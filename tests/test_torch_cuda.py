@@ -11,10 +11,11 @@ the twin's fp32 torch.matmul); K2 bit for bit against its CPU model
 (scanned vs blocked de-emphasis); K3 0 LSB and a bit-equal state (the
 walk keeps every rounding of the recurrence); the Opus sample decode 1 LSB
 against the golden;
-K8 1e-4 at unit scale (direct-form fp32 sums against the twin's FFT
-convolution); K10 1e-5 (the same 64- or 128-tap fp32 dot products in
-another order); the binaural and 44.1 kHz decodes 1 LSB against the CPU
-run.
+K8 1e-4 at unit scale against the twin and a float64 direct convolution
+(its own fp32 overlap-save FFTs against the twin's; a few 1e-6 measured),
+1e-5 against its numpy model (tests/k8_model.py); K10 1e-5 (the same 64-
+to 128-tap fp32 dot products in another order); the binaural and 44.1 kHz
+decodes 1 LSB against the CPU run.
 """
 
 import os
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 import k2_model
+import k8_model
 from iamf_tpu.constants import ChannelLayout
 from iamf_tpu_torch.codecs.opus import imdct, synth
 from iamf_tpu_torch.dsp import binaural, limiter, resample
@@ -250,10 +252,44 @@ def test_k8_short_blocks_match_direct(dev, N):
     assert np.abs(ov.cpu().numpy() - full[:, 3 * N:]).max() < 1e-4
 
 
+@pytest.mark.parametrize("taps", [64, 512, 513, 2048, 5632])
+def test_k8_filter_lengths(dev, taps):
+    """Every filter length goes through the one FFT path: one part up to
+    512 taps (K8_PART), two from 513, four at 2048, eleven at 5632 (the
+    first design's limit); blocks longer and shorter than the filter,
+    with a live carry, against float64 and the numpy model of the plan."""
+    bank = binaural.hrir_bank(ChannelLayout.L510, taps=taps)
+    hrir = binaural.hrir_for_batch(bank, 1, 960, dev)
+    rng = np.random.RandomState(taps)
+    lens = [960, 100, 3000]
+    x = (rng.randn(6, sum(lens)) * 0.3).astype(np.float32)
+    ov0 = (rng.randn(2, taps - 1) * 0.1).astype(np.float32)
+    ov, ov_m = torch.from_numpy(ov0).to(dev), ov0
+    ys, ys_m, t = [], [], 0
+    for n in lens:
+        xb = x[:, t:t + n]
+        y, ov = binaural.hrtf_conv_cuda(hrir, torch.from_numpy(xb).to(dev),
+                                        ov)
+        y_m, ov_m = k8_model.k8(bank, xb, ov_m)
+        assert np.abs(y.cpu().numpy() - y_m).max() < 1e-5
+        ys.append(y.cpu().numpy())
+        t += n
+    full = np.zeros((2, t + taps - 1))
+    for e in range(2):
+        for c in range(6):
+            full[e] += np.convolve(x[c].astype(np.float64),
+                                   bank[e, c].astype(np.float64))
+    full[:, :taps - 1] += ov0
+    assert np.abs(np.concatenate(ys, 1) - full[:, :t]).max() < 1e-4
+    assert np.abs(ov.cpu().numpy() - full[:, t:]).max() < 1e-4
+    assert np.abs(ov.cpu().numpy() - ov_m).max() < 1e-5
+
+
 @pytest.mark.parametrize("C", [1, 12])
 @pytest.mark.parametrize("rate,n_in", [(44100, 100000), (16000, 30000),
                                        (32000, 50000), (96000, 100000),
-                                       (44100, 500)])
+                                       (44100, 500), (22050, 50000),
+                                       (11025, 30000), (88200, 100000)])
 def test_k10_matches_plain(dev, rate, n_in, C):
     rng = np.random.RandomState(rate % 1009 + C)
     x = (rng.randn(C, n_in) * 0.4).astype(np.float32)

@@ -55,6 +55,35 @@ def test_decode_all_matches_jax(name):
     assert d.max() <= 1, f"{d.max()} LSB"
 
 
+@pytest.mark.parametrize("truepeak,limiter", [("1", True), ("1", False),
+                                               (None, True)])
+def test_truepeak_switch(monkeypatch, truepeak, limiter):
+    """IAMF_TRUEPEAK=1 asks the device limiter to meter true peaks, as it
+    does the JAX decoder's (iamf_tpu/core/batch_decoder.py:539): the port
+    refuses it by name until it is ported. Without the limiter, or with
+    the switch unset, the decode runs as before."""
+    if truepeak is None:
+        monkeypatch.delenv("IAMF_TRUEPEAK", raising=False)
+    else:
+        monkeypatch.setenv("IAMF_TRUEPEAK", truepeak)
+
+    def decode():
+        return BatchedStreamDecoder(_stream("pcm714"), sound_system=9,
+                                    batch_frames=8, limiter=limiter,
+                                    device="cpu").decode_all()
+
+    if truepeak and limiter:
+        with pytest.raises(NotImplementedError, match="item 9"):
+            decode()
+        return
+    got = decode()
+    want = (_jax_decode("pcm714") if limiter else JaxDecoder(
+        _stream("pcm714"), sound_system=9, batch_frames=8,
+        limiter=False).decode_all())
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
 @pytest.mark.parametrize("split", [("silk", 960, 1), ("hybrid", 960, 1),
                                    ("celt", 480, 2), ("host", 960, 1)])
 def test_unported_opus_operating_points_raise(monkeypatch, split):

@@ -179,7 +179,9 @@ def test_resample_host_copies_match(rate):
     assert geo == (dr.N, dr.num, dr.den, dr.in_chunk, dr.out_chunk,
                    dr.carry_len) == RATES[rate]
     assert np.array_equal(plan.W.numpy(), dr.W)
-    assert np.array_equal(plan.Wt.numpy(), dr.W.T)
+    # K10's per-phase bank gives back the JAX package's rows
+    o = np.arange(plan.out_chunk)
+    assert np.array_equal(plan.bank.numpy()[(plan.num * o) % plan.den], dr.W)
     assert np.array_equal(plan.win_start.numpy(), dr.win_start)
     assert plan.input_latency == dr.host_params.input_latency
     for T in (1, 960, 44100 * 30):

@@ -4,8 +4,9 @@ emission of decode_frames, and BatchedStreamDecoder end to end (resample,
 normalization, the tail's limiter or plain quantization).
 
 Bounds: the twin against DeviceResampler.resample_stream <= 1e-6 (both
-run the same float32 contraction per output, in another order); decoded
-PCM <= 1 s16 LSB.
+run the same float32 contraction per output, in another order); a numpy
+model of K10's periodic indexing against the twin <= 1e-6 (the same taps,
+summed in float64); decoded PCM <= 1 s16 LSB.
 """
 
 import numpy as np
@@ -115,3 +116,63 @@ def test_emit_float_matches_jax():
     assert yp.dtype == torch.float32 and yp.shape == yj.shape == (B * T, 6)
     assert np.abs(yp.numpy() - yj).max() <= 1e-6
     assert carry["pos"] == B
+
+
+K10_RATES = [44100, 16000, 32000, 96000, 22050, 11025, 88200]
+
+
+@pytest.mark.parametrize("rate", K10_RATES)
+def test_plan_bank_and_tiles(rate):
+    """The per-phase bank reproduces every row of W exactly
+    (bank[(num*o) % den] == W[o]), and K10's tiles hold each output's row,
+    shifted to its place in the tile's window and zero elsewhere."""
+    plan = resample.ResamplePlan(rate, 48000, device="cpu")
+    num, den, N = plan.num, plan.den, plan.N
+    W, bank = plan.W.numpy(), plan.bank.numpy()
+    o = np.arange(plan.out_chunk)
+    assert bank.shape == (den, N)
+    assert np.array_equal(bank[(num * o) % den], W)
+    R, L = resample.K10_R, plan.tile_outputs
+    rows, start = plan.rows.numpy(), plan.tile_start.numpy()
+    assert L % den == 0 and L % R == 0 and rows.shape[0] * R == L
+    assert plan.tile_inputs == num * L // den
+    for k in range(L):
+        u, i = divmod(k, R)
+        d = num * k // den - start[u]
+        row = np.zeros(rows.shape[1], np.float32)
+        row[d:d + N] = bank[(num * k) % den]
+        assert np.array_equal(rows[u, :, i], row)
+
+
+def k10_model(plan, x):
+    """K10's indexing in numpy: output j = L*M + R*u + i sums its tile's
+    window at tile_inputs*M + start[u] + D against the tile's row i."""
+    C, T = x.shape
+    n = plan.n_out(T)
+    R, L = resample.K10_R, plan.tile_outputs
+    rows, start = plan.rows.numpy(), plan.tile_start.numpy()
+    j = np.arange(n)
+    M, k = divmod(j, L)
+    u, i = divmod(k, R)
+    w0 = plan.tile_inputs * M + start[u] + plan.lead
+    idx = w0[:, None] + np.arange(rows.shape[1])
+    xz = np.zeros((C, max(T, idx.max() + 1)))
+    xz[:, :T] = x
+    win = np.where(idx >= 0, xz[:, np.clip(idx, 0, None)], 0.0)  # [C, n, NE]
+    y = np.einsum("cjf,jf->cj", win, rows[u, :, i].astype(np.float64))
+    return np.clip(y, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("rate,n_in", [(44100, 20000), (44100, 500),
+                                       (16000, 9000), (32000, 20000),
+                                       (96000, 40000), (22050, 9000),
+                                       (11025, 5000), (88200, 40000)])
+def test_k10_model_matches_twin(rate, n_in):
+    rng = np.random.RandomState(rate % 991 + n_in)
+    x = (rng.randn(3, n_in) * 0.4).astype(np.float32)
+    x[:, n_in // 3:n_in // 3 + 50] *= 4.0
+    plan = resample.ResamplePlan(rate, 48000, device="cpu")
+    want = resample.resample_plain(plan, torch.from_numpy(x)).numpy()
+    got = k10_model(plan, x)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-6
