@@ -41,14 +41,31 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      trace; short H2B (FOA), two-element and mode-0 (matrix, no K8) runs;
   7. resampled at full width: 30 s of 7.1.4 PCM at 44.1 kHz -> sound
      system J at batch_frames=128, limiter on, likewise (K10 and K3); short
-     5.1 runs with normalization, limiter on and off.
+     5.1 runs with normalization, limiter on and off;
+  8. kernels of the AAC and true-peak paths: K7 (AAC filterbank) at
+     B=128 and B=8 with every (sequence, shape, previous shape) and a live
+     carry over two consecutive calls, against its twin (1 LSB; the
+     unrounded carry within 0.25 at s16 scale), its product kernel's SASS
+     holding HGMMA and UTMALDG; K9 (true-peak meter) at [12, 122,880] and
+     [2, 122,880] from a nonzero history over two batches; each with its
+     times, its twin's, its bound and its one-call yardstick (torch.matmul
+     of the long product; F.conv1d of the FIR);
+  9. AAC at full width: 30 s of 7.1.4 AAC-LC (1407 frames, short blocks
+     included; streams.build_aac_layout_stream) -> sound system J at
+     batch_frames=128, limiter on, against the CPU run, with its realtime
+     factor and K7's launches; a loud 5.1 AAC stream at batch_frames=8;
+ 10. true peak at full width: 30 s of 7.1.4 PCM carrying an fs/4 tone at
+     45 degrees -> J at batch_frames=128 with IAMF_TRUEPEAK=1 (set around
+     the decoders, then restored), against the CPU run, with K9's
+     launches; the limiter engages where a sample-peak decode's stays idle.
 Every kernel's launch count in the kernels line comes from the run of the
 path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
-resampled one), with the counts set to 0 just before that run; its
+resampled one, K7 the AAC one, K9 the true-peak one), with the counts set
+to 0 just before that run; its
 bound_ms is the larger of bytes over 3.35 TB/s and operations over the
 peak of their type (H100 SXM), from the row's own inputs, counting the
 fewest operations the function needs (K8: an FFT convolution; K3: a
-sliding window max).
+sliding window max; K7: FFT IMDCTs).
 The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without that line; so does a machine without a
 visible CUDA device.
@@ -793,6 +810,238 @@ def k10_k3_phase(dev, tag):
     return row
 
 
+# --- phase 8: the AAC filterbank and the true-peak meter ---------------------
+
+K7_CASES = np.array([(q, h, p) for q in range(4) for h in range(2)
+                     for p in range(2)], np.int32)
+
+
+def k7_inputs(B, dev, seed):
+    """K7's inputs: spectra [B, 12, 1024] at the scale of the AAC cell's
+    (PCM peaks of a few thousand), each row's (sequence, shape, previous
+    shape) drawn from all 16 (a quarter of the rows EIGHT_SHORT), a live
+    carry."""
+    rng = np.random.RandomState(seed)
+    spec = torch.from_numpy((rng.randn(B, LANES, 1024) * 3000.0).astype(
+        np.float32)).to(dev)
+    meta = torch.from_numpy(K7_CASES[rng.randint(16, size=(B, LANES))]).to(
+        dev)
+    carry = torch.from_numpy((rng.randn(LANES, 1024) * 3000.0).astype(
+        np.float32)).to(dev)
+    return spec, meta, carry
+
+
+def imdct_ops(meta) -> float:
+    """The fewest fp32 operations of K7's function on these rows: an FFT
+    IMDCT of n outputs is an n/4-point complex FFT (5 (n/4) log2(n/4)
+    flops) with pre- and post-twiddles (12 flops a point), one per long
+    row (n = 2048) and eight per short row (n = 256); a multiply per
+    windowed sample, an add per overlapped one inside a short frame; an add
+    and 4 for the rounding per output sample."""
+    def fft_imdct(n):
+        q = n // 4
+        return 5 * q * math.log2(q) + 12 * q
+
+    short = int((meta[..., 0] == 2).sum())
+    rows = meta[..., 0].numel()
+    return ((rows - short) * (fft_imdct(2048) + 2048)
+            + short * (8 * fft_imdct(256) + 2048 + 7 * 128)
+            + rows * 1024 * 5)
+
+
+def k7_library(tag, tabs, spec):
+    """The one PyTorch call K7 is held against: torch.matmul (cuBLAS fp32,
+    TF32 off) of the long product, [B*L, 1024] x [1024, 2048], over the
+    same rows (the twin's route). Returns its ms per call (CUDA events)."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "matmul TF32 is on")
+    x, b = spec.reshape(-1, 1024), tabs.b_long()
+
+    def mm():
+        return torch.matmul(x, b)
+
+    ms = cuda_ms(mm)
+    dev_ms, _ = device_ms(mm)
+    print(f"torch.matmul yardstick for K7 [{x.shape[0]}, 1024] x [1024, "
+          f"2048]: {ms:.4f} ms per call, device {dev_ms:.4f} ms {tag}")
+    return ms
+
+
+def k7_phase(dev, tag, lib):
+    from iamf_tpu_torch.codecs.aac import synth as aac
+
+    counts = sass_counts(lib, "k7_product", ("HGMMA", "UTMALDG"))
+    print(f"K7 product kernel SASS: {counts}")
+    check(all(counts.values()), f"K7 misses tensor cores or TMA: {counts}")
+    tabs = aac.Tables().to(dev)
+    row = dict(name="k7_aac_synth", max_abs_err=0.0)
+    for B in (B_MAIN, B_OPUS):
+        _, _, c_d = k7_inputs(B, dev, B)
+        c_p = c_d
+        for call in range(2):  # the carry chained from one call to the next
+            spec, meta, _ = k7_inputs(B, dev, 10 * B + call)
+            y, c_d = aac.synthesize_cuda(tabs, spec, meta, c_d)
+            y_p, c_p = aac.synthesize_plain(tabs, spec, meta, c_p)
+            torch.cuda.synchronize()
+            lsb = float((y - y_p).abs().max()) * 32768
+            err = float((c_d - c_p).abs().max())
+            print(f"K7 aac synth [B={B}, L={LANES}] call {call + 1}: PCM "
+                  f"max|diff| {lsb:.0f} LSB (bound 1), unrounded carry "
+                  f"max|diff| {err:.3e} at s16 scale (bound 0.25)")
+            check(lsb <= 1 and err < 0.25,
+                  f"K7 disagrees with its plain twin: {lsb} LSB, {err}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        ms = cuda_ms(lambda: aac.synthesize_cuda(tabs, spec, meta, c_d))
+        plain = cuda_ms(lambda: aac.synthesize_plain(tabs, spec, meta, c_d))
+        dev_ms, per = device_ms(
+            lambda: aac.synthesize_cuda(tabs, spec, meta, c_d))
+        parts = {n: sum(v for k, v in per.items() if n in k)
+                 for n in ("k7_product", "k7_window", "k7_overlap")}
+        dev_plain, _ = device_ms(
+            lambda: aac.synthesize_plain(tabs, spec, meta, c_d))
+        print(f"K7 time [B={B}] {ms:.4f} ms per call, plain twin "
+              f"(torch.matmul fp32, both paths) {plain:.4f} ms; device time "
+              f"per call {dev_ms:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f"), twin {dev_plain:.4f} ms {tag}")
+        if B == B_MAIN:
+            ops = imdct_ops(meta)
+            b = bound(nbytes(spec, meta, c_d, y, c_d), ops, FP32_FLOPS)
+            R = B * LANES
+            mm = 2 * R * 1024 * 2048
+            print(f"K7 bound [B={B}] {b['bound_ms']:.4f} ms ({b['bound_by']}"
+                  f"; {ops / 1e6:.1f} M flops by FFT IMDCTs); the product "
+                  f"as the reference computes it: {mm / 1e9:.2f} GFLOP, "
+                  f"{3 * mm / 1e9:.1f} G in split TF32 = "
+                  f"{3 * mm / TF32_FLOPS * 1e3:.4f} ms at the TF32 peak")
+            lib_ms = k7_library(tag, tabs, spec)
+            row.update(ms=ms, plain_ms=plain, library_ms=lib_ms, **b)
+    return row
+
+
+def k9_library(tag, x, hist, pk_p):
+    """The one PyTorch call computing K9's FIR: F.conv1d (cuDNN, fp32, TF32
+    off) of each channel's history ++ x with the four phases' time-reversed
+    taps [4, 1, 12]; the maximum over channels and phases, untimed,
+    checked against K9's twin. Returns its ms per call (CUDA events)."""
+    import torch.nn.functional as F
+
+    from iamf_tpu_torch.dsp import limiter
+
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+    w = torch.from_numpy(limiter.truepeak_filters()[:, None, ::-1].copy()
+                         ).to(x.device)
+    xc = torch.cat([hist, x], dim=1)[:, None]
+
+    def conv():
+        return F.conv1d(xc, w)
+
+    pk = conv().abs().amax(dim=(0, 1))
+    err = float((pk - pk_p).abs().max())
+    print(f"F.conv1d yardstick for K9 [{x.shape[0]}, 4 phases x 12 taps]: "
+          f"max|diff| vs twin {err:.3e} (bound 1e-6)")
+    check(err <= 1e-6, f"F.conv1d disagrees with K9's twin: {err}")
+    ms = cuda_ms(conv)
+    dev_ms, _ = device_ms(conv)
+    print(f"F.conv1d [{x.shape[0]}, {x.shape[1]}]: {ms:.4f} ms per call, "
+          f"device {dev_ms:.4f} ms {tag}")
+    return ms
+
+
+def k9_phase(dev, tag):
+    from iamf_tpu_torch.dsp import limiter
+
+    row = dict(name="k9_truepeak", max_abs_err=0.0)
+    N = B_MAIN * FRAME
+    for C in (LANES, 2):
+        rng = np.random.RandomState(C)
+        hist = torch.from_numpy((rng.randn(C, limiter.TP_HIST) * 0.5).astype(
+            np.float32)).to(dev)
+        h_d = h_p = hist
+        for call in range(2):  # the history chained from one batch on
+            x = torch.from_numpy((rng.randn(C, N) * 0.3).astype(
+                np.float32)).to(dev)
+            pk, h_d = limiter.truepeak_cuda(x, h_d)
+            pk_p, h_p = limiter.truepeak_plain(x, h_p)
+            torch.cuda.synchronize()
+            err = float((pk - pk_p).abs().max())
+            tol = float(pk_p.abs().max()) * 2.0 ** -23
+            print(f"K9 true peak [C={C}, N={N}] batch {call + 1}: max|diff| "
+                  f"{err:.3e} (bound {tol:.3e}, one rounding), bit-equal "
+                  f"{torch.equal(pk, pk_p)}, history equal "
+                  f"{torch.equal(h_d, h_p)}")
+            check(err <= tol and torch.equal(h_d, h_p),
+                  f"K9 disagrees with its plain twin: {err}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        h0 = h_d
+        ms, plain = _twin_times(
+            tag, f"K9 [C={C}, N={N}]",
+            lambda: limiter.truepeak_cuda(x, h0),
+            lambda: limiter.truepeak_plain(x, h0))
+        if C == LANES:
+            ops = 2 * limiter.TP_PHASES * limiter.TP_TAPS * C * N
+            b = bound(nbytes(x, h0, pk, h_d), ops, FP32_FLOPS)
+            print(f"K9 bound [C={C}, N={N}] {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}; {ops / 1e6:.1f} M flops)")
+            lib_ms = k9_library(tag, x, h0, limiter.truepeak_plain(x, h0)[0])
+            row.update(ms=ms, plain_ms=plain, library_ms=lib_ms, **b)
+    return row
+
+
+# --- phases 9 / 10: the AAC and true-peak decode paths ------------------------
+
+def aac_phase(dev, tag, kernels, off_path):
+    from iamf_tpu_torch.codecs.aac.synth import K7
+    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.tools import streams
+
+    L = streams.ChannelLayout
+    t = time.perf_counter()
+    stream, _ = streams.build_aac_layout_stream(L.L714, n_frames=1407,
+                                                seed=5)
+    print(f"aac 7.1.4 30 s stream: {len(stream)} bytes, built in "
+          f"{time.perf_counter() - t:.1f} s")
+    launches = decode_path(
+        dev, tag, "aac 7.1.4 30 s -> ssJ", stream,
+        dict(sound_system=9, batch_frames=B_MAIN), kernels, (K7, K3),
+        off_path)
+    data = streams.build_aac_layout_stream(L.L510, n_frames=40, seed=6,
+                                           gain_offset=8)[0]
+    decode_path(dev, tag, "aac 5.1 loud (limiter engaged)", data,
+                dict(sound_system=1, batch_frames=8), kernels, (K7, K3),
+                off_path)
+    return launches
+
+
+def truepeak_phase(dev, tag, kernels, off_path):
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.dsp.limiter import K3, K9
+    from iamf_tpu_torch.tools import streams
+
+    L = streams.ChannelLayout
+    stream, _ = streams.build_pcm_layout_stream(
+        L.L714, n_frames=1500, pcm_override=streams.isp_tone_pcm(1500, 12))
+    kw = dict(sound_system=9, batch_frames=B_MAIN)
+    sample = BatchedStreamDecoder(stream, device=dev, **kw).decode_all()
+    old = os.environ.get("IAMF_TRUEPEAK")
+    os.environ["IAMF_TRUEPEAK"] = "1"
+    try:
+        launches = decode_path(
+            dev, tag, "pcm 7.1.4 30 s true peak -> ssJ", stream, kw,
+            kernels, (K9, K3), off_path)
+        got = BatchedStreamDecoder(stream, device=dev, **kw).decode_all()
+    finally:
+        if old is None:
+            del os.environ["IAMF_TRUEPEAK"]
+        else:
+            os.environ["IAMF_TRUEPEAK"] = old
+    d = int(np.abs(got.astype(np.int32) - sample.astype(np.int32)).max())
+    peak = [int(np.abs(a.astype(np.int32)).max()) for a in (sample, got)]
+    print(f"true peak vs sample peak decode: max|diff| {d}; peaks "
+          f"{peak[0]} (sample-peak limiter) and {peak[1]} (true-peak)")
+    check(d > 500, f"the true-peak meter did not engage: {d}")
+    return launches
+
+
 # --- phases 6 / 7: the binaural and resampled decode paths --------------------
 
 def trace_decode(fn, label):
@@ -904,10 +1153,11 @@ def resample_phase(dev, tag, kernels):
 
 def main() -> int:
     from iamf_tpu_torch import require_cuda
+    from iamf_tpu_torch.codecs.aac.synth import K7
     from iamf_tpu_torch.codecs.opus.imdct import K1
     from iamf_tpu_torch.codecs.opus.synth import K2
     from iamf_tpu_torch.dsp.binaural import K8
-    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.dsp.limiter import K3, K9
     from iamf_tpu_torch.dsp.resample import K10
     from iamf_tpu_torch.kernels import build as kbuild
 
@@ -923,12 +1173,17 @@ def main() -> int:
 
     rows = [k1_phase(dev, tag, path), k2_phase(dev, tag),
             k3_phase(dev, tag, path)]
-    kernels = (K1, K2, K3, K8, K10)
+    kernels = (K1, K2, K3, K7, K8, K9, K10)
     launches = opus_phase(dev, tag, (K1, K2, K3))
     pcm_phase(dev, tag)
     rows += [k8_phase(dev, tag), k10_k3_phase(dev, tag)]
     launches[K8.symbol] = binaural_phase(dev, tag, kernels)[K8.symbol]
     launches[K10.symbol] = resample_phase(dev, tag, kernels)[K10.symbol]
+    rows += [k7_phase(dev, tag, path), k9_phase(dev, tag)]
+    launches[K7.symbol] = aac_phase(dev, tag, kernels,
+                                    (K1, K2, K8, K9, K10))[K7.symbol]
+    launches[K9.symbol] = truepeak_phase(dev, tag, kernels,
+                                         (K1, K2, K7, K8, K10))[K9.symbol]
 
     meta = {
         "k1_imdct_tdac": ("iamf_tpu_torch/csrc/imdct.cu",
@@ -941,6 +1196,10 @@ def main() -> int:
                          "iamf_tpu/core/pipeline.py:267", K8),
         "k10_resample": ("iamf_tpu_torch/csrc/resample.cu",
                          "iamf_tpu/dsp/resample.py:248", K10),
+        "k7_aac_synth": ("iamf_tpu_torch/csrc/aac_synth.cu",
+                         "iamf_tpu/codecs/aac/tpu_synth.py:148", K7),
+        "k9_truepeak": ("iamf_tpu_torch/csrc/truepeak.cu",
+                        "iamf_tpu/dsp/limiter.py:132", K9),
     }
     table = []
     for r in rows:

@@ -108,15 +108,16 @@ def fused_mats():
     return (t32(a_l), t32(a_s), t32(c_l), t32(c_s), t32(d_l), t32(d_s))
 
 
-def k_order() -> np.ndarray:
-    """The contraction order of K1's product: slot q of each 32-deep k-step
-    holds spectrum offset p(q) of the step. With q = 8 kk + 4 h + t (8-deep
-    slice kk, TF32 wgmma A-fragment column t + 4 h), p = 8 t + 2 kk + h puts
-    each thread's 8 values of a step next to each other in shared memory."""
+def k_order(k: int = FRAME) -> np.ndarray:
+    """The contraction order of K1's product (and K7's, k = 1024): slot q
+    of each 32-deep k-step holds spectrum offset p(q) of the step. With
+    q = 8 kk + 4 h + t (8-deep slice kk, TF32 wgmma A-fragment column
+    t + 4 h), p = 8 t + 2 kk + h puts each thread's 8 values of a step next
+    to each other in shared memory."""
     q = np.arange(32)
     kk, h, t = q // 8, (q // 4) % 2, q % 4
     p = 8 * t + 2 * kk + h
-    return (np.arange(0, FRAME, 32)[:, None] + p).reshape(-1)
+    return (np.arange(0, k, 32)[:, None] + p).reshape(-1)
 
 
 def product_mats():

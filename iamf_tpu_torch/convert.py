@@ -7,6 +7,7 @@ given device, so both packages can start a batch from identical state.
 - ``pipe_carry``: iamf_tpu.core.pipeline.init_carry / decode_frames carry
   (limiter state, ``splice``, ``pos``, the binaural overlap ``hrtf``)
 - ``synth_carry``: iamf_tpu.codecs.opus.tpu_synth.SynthCarry
+- ``aac_carry``: iamf_tpu.codecs.aac.tpu_synth's [L, 1024] overlap carry
 - ``pipeline_config``: iamf_tpu.core.pipeline.PipelineConfig
 
 The JAX arrays are passed through ``np.asarray`` by the caller or here;
@@ -73,20 +74,21 @@ def limiter_state(state: dict, device) -> dict:
     """iamf_tpu.dsp.limiter state dict -> dsp/limiter.py state dict. The
     envelope time must be one K3 can place: -1 or a value the recurrence
     reaches (check_reachable_tc; those depend only on the attack, release
-    and rate, which both decoders leave at LimiterConfig's defaults)."""
-    if "tp_hist" in state:
-        raise NotImplementedError(
-            "true-peak limiter state (ROADMAP.md §1 item 9)")
+    and rate, which both decoders leave at LimiterConfig's defaults). The
+    true-peak meter's history tp_hist [C, 11] comes along where present."""
     env = [state[k] for k in ("current_gain", "target_start_gain",
                               "target_end_gain", "current_tc")]
     check_reachable_tc(LimiterConfig(), np.asarray(env[3]))
-    return {
+    out = {
         "env": _t(np.array(env, np.float32), device),
         "delay_data": _t(state["delay_data"], device, np.float32),
         "peak_data": _t(state["peak_data"], device, np.float32),
         "entry_index": _t(np.reshape(state["entry_index"], (1,)), device,
                           np.int32),
     }
+    if "tp_hist" in state:
+        out["tp_hist"] = _t(state["tp_hist"], device, np.float32)
+    return out
 
 
 def pipe_carry(carry: dict, device) -> dict:
@@ -108,3 +110,8 @@ def synth_carry(carry, device) -> SynthCarry:
     return SynthCarry(tail=_t(tail, device, np.float32),
                       hist=_t(hist, device, np.float32),
                       demem=_t(demem, device, np.float32))
+
+
+def aac_carry(carry, device) -> torch.Tensor:
+    """The AAC filterbank's overlap carry [L, 1024]."""
+    return _t(carry, device, np.float32)

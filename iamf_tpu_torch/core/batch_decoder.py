@@ -3,16 +3,19 @@ iamf_tpu/core/batch_decoder.py).
 
 The host half is the reference's: all OBUs are split up front
 (obu/parser.py), the parameter timeline is replayed (core/timeline.py),
-PCM substreams are unpacked in one vectorized pass, and Opus substreams are
-entropy-decoded per batch by the native decoder into one packed spectra
-buffer, prefetched one batch ahead on a worker thread so host entropy
+PCM and FLAC substreams are unpacked in one vectorized pass, and Opus and
+AAC substreams are entropy-decoded per batch by the native decoders into
+spectra, prefetched one batch ahead on a worker thread so host entropy
 overlaps the device work. The device half runs per batch:
 
     kind "opus" (CELT-960, one frame per unit): CELT synthesis
         (codecs/opus/synth.py: K1 IMDCT+TDAC, K2 comb+de-emphasis+s16)
+    kind "aac"  (AAC-LC, 1024-sample frames): the synthesis filterbank
+        (codecs/aac/synth.py: K7 IMDCT, windows, overlap-add, s16)
     kind "raw"  (PCM and FLAC, unpacked on the host): passthrough
     -> core/pipeline.decode_frames (demix, render, K8 HRTF convolution for
-       binaural elements, gains, mix, head trim, K3 limiter + quantize)
+       binaural elements, gains, mix, head trim, K3 limiter + quantize,
+       fed by the K9 true-peak meter with IAMF_TRUEPEAK=1)
 
 binaural=True renders to two ears: channel-based elements with
 headphones_rendering_mode 1 convolve their channel bed with the layout's
@@ -26,9 +29,8 @@ normalization gain, the limiter (K3, one call over the stream and its
 drain) or plain quantization, and one copy to the host.
 
 Not ported yet, and raising NotImplementedError: other Opus operating
-points, SILK and hybrid included (ROADMAP.md §1 item 5), AAC (item 6),
-true-peak metering (IAMF_TRUEPEAK=1 with the device limiter, item 9) and
-mid-stream reconfigure segments (item 10).
+points, SILK and hybrid included (ROADMAP.md §1 item 5), AAC with frames
+other than 1024 samples, and mid-stream reconfigure segments (item 10).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import os
 import numpy as np
 import torch
 
+from ..codecs.aac import synth as aac_synth
 from ..codecs.base import open_decoder
 from ..codecs.opus import synth as opus_synth
 from ..codecs.opus.decoder import decode_spectrum_batch
@@ -76,21 +79,27 @@ class _ElemCtx:
     input_scale: float
     raw_input: bool
     opus: bool
+    aac: bool
     gain: float  # element default mix gain (linear)
     hrtf_bank: object = None  # np.ndarray [2, n_bed, taps] | None: the HRIRs
     #   of a binaural (M2B/H2B) element; render_mat then yields the bed
 
 
-def fused_decode(cfg: PipelineConfig, kinds: tuple, synth, carry: dict,
-                 params: dict, bufs: list):
+def fused_decode(cfg: PipelineConfig, kinds: tuple, synths: dict,
+                 carry: dict, params: dict, bufs: list):
     """Codec synthesis for each element, then the decode pipeline, for one
-    batch. Returns (carry, pcm [B*T, out] int)."""
+    batch. synths: the synthesis constants by kind ("opus": CeltSynth,
+    "aac": aac_synth.Tables); an AAC element's input is (spec, meta).
+    Returns (carry, pcm [B*T, out] int)."""
     xs = []
     syn = []
     for i, kind in enumerate(kinds):
         if kind == "opus":
-            x, s = opus_synth.synthesize_packed(synth, bufs[i],
+            x, s = opus_synth.synthesize_packed(synths["opus"], bufs[i],
                                                 carry["syn"][i])
+        elif kind == "aac":
+            x, s = aac_synth.synthesize(synths["aac"], *bufs[i],
+                                        carry["syn"][i])
         elif kind == "raw":
             x, s = bufs[i], carry["syn"][i]
         else:
@@ -124,15 +133,17 @@ class _HostPlan:
             packets = [dec.frames_per_substream[sid]
                        for sid in e.substream_ids]
             self.elem_packets.append(packets)
-            if e.opus:
+            if e.opus or e.aac:
                 self.elem_all_x.append(None)
-                syn_carry.append(opus_synth.init_carry(
-                    sum(ch for _, ch in e.codec._decoders), dev))
+                syn_carry.append((opus_synth if e.opus else aac_synth)
+                                 .init_carry(sum(ch for _, ch in
+                                                 e.codec._decoders), dev))
             else:
                 self.elem_all_x.append(e.codec.decode_batch_raw(packets, T)[0])
                 syn_carry.append(None)
         self.carry = {"pipe": init_carry(dec.cfg, dev), "syn": syn_carry}
-        self.kinds = tuple("opus" if e.opus else "raw" for e in dec.elems)
+        self.kinds = tuple("opus" if e.opus else "aac" if e.aac else "raw"
+                           for e in dec.elems)
 
         # Output bookkeeping: with the pre-limiter trim splice the first
         # call emits only warm-up zeros, so the kept stream starts at call
@@ -150,17 +161,22 @@ class _HostPlan:
         while (self.total_calls - self.k0) * B * T < needed:
             self.total_calls += 1
 
-        # Opus entropy decode one batch ahead on ONE worker: the codec's
-        # inter-frame state chains across batches, so batches decode in
-        # submission order, never concurrently.
+        # Opus and AAC entropy decode one batch ahead on ONE worker: the
+        # codecs' inter-frame state (CELT energies, AAC window shapes)
+        # chains across batches, so batches decode in submission order,
+        # never concurrently.
         self.entropy_pool = (cf.ThreadPoolExecutor(1)
-                             if any(e.opus for e in dec.elems) else None)
+                             if any(e.opus or e.aac for e in dec.elems)
+                             else None)
         self._pending = self._submit(0) if self.n_batches else None
         self._bi = 0
 
     def _host_batch(self, i, e, start, count):
         if e.opus:
             return self.dec._opus_entropy(
+                e, self.elem_packets[i], start, count, self.B)
+        if e.aac:
+            return self.dec._aac_entropy(
                 e, self.elem_packets[i], start, count, self.B)
         xs = self.elem_all_x[i][start:start + count]
         if count < self.B:
@@ -173,7 +189,7 @@ class _HostPlan:
         count = min(self.B, self.n - start)
         items = []
         for i, e in enumerate(self.dec.elems):
-            if e.opus:
+            if e.opus or e.aac:
                 items.append(self.entropy_pool.submit(
                     self._host_batch, i, e, start, count))
             else:
@@ -277,8 +293,11 @@ class BatchedStreamDecoder:
             item = self.db.elements[econf.element_id]
             self.elems.append(
                 self._open_element(item, econf, sound_system, out_ch))
-        self.synth = (opus_synth.celt_synth(self.device)
-                      if any(e.opus for e in self.elems) else None)
+        self.synths = {}
+        if any(e.opus for e in self.elems):
+            self.synths["opus"] = opus_synth.celt_synth(self.device)
+        if any(e.aac for e in self.elems):
+            self.synths["aac"] = aac_synth.Tables().to(self.device)
         out_gain_default = db_to_linear(
             q78_to_db(sub.output_mix_gain.default_mix_gain_q78))
         norm_gain = 1.0
@@ -490,15 +509,17 @@ class BatchedStreamDecoder:
                     f"Opus {opus_mode} n={n_f} k={k_f}: only CELT-960 with "
                     "one frame per unit is ported (ROADMAP.md §1 item 5)")
             opus = True
-        elif not raw_input:
+        aac = not opus and hasattr(codec, "decode_spectrum_batch")
+        if aac and self.frame_size != aac_synth.FRAME:
             raise NotImplementedError(
-                "AAC is not ported yet (ROADMAP.md §1 item 6)")
+                f"AAC with {self.frame_size}-sample frames: only 1024-sample "
+                "AAC-LC frames are ported (the device filterbank)")
         return _ElemCtx(
             stream=stream, codec=codec,
             substream_ids=list(el.substream_ids),
             demix_spec=demix_spec, render_mat=render_mat, downmix=downmix,
             n_in=n_in, input_scale=input_scale, raw_input=raw_input,
-            opus=opus, gain=gain, hrtf_bank=hrtf_bank,
+            opus=opus, aac=aac, gain=gain, hrtf_bank=hrtf_bank,
         )
 
     @property
@@ -526,10 +547,30 @@ class BatchedStreamDecoder:
             buf = np.concatenate([buf, padbuf])
         return buf
 
+    def _aac_entropy(self, e: _ElemCtx, packets, start, count, B):
+        """Host entropy decode of one AAC batch -> (spectra [B, L, 1024]
+        float32, (window_sequence, window_shape, previous shape) [B, L, 3]
+        int32), padded with neutral rows: zero spectra, ONLY_LONG, sine."""
+        blk = [[p[k] for p in packets] for k in range(start, start + count)]
+        d = e.codec.decode_spectrum_batch(blk)
+        meta = np.stack([d["win_seq"], d["shape"], d["prev_shape"]],
+                        axis=-1).astype(np.int32)
+        spec = d["spec"].astype(np.float32, copy=False)
+        pad = B - count
+        if pad:
+            spec = np.concatenate(
+                [spec, np.zeros((pad,) + spec.shape[1:], np.float32)])
+            meta = np.concatenate(
+                [meta, np.zeros((pad,) + meta.shape[1:], np.int32)])
+        return spec, meta
+
     @staticmethod
-    def _flush_buf(kind: str, like: torch.Tensor) -> torch.Tensor:
+    def _flush_buf(kind: str, like):
         """Zero input for a trailing flush call; Opus rows keep legal comb
-        periods (zero gains make the comb an identity either way)."""
+        periods (zero gains make the comb an identity either way), AAC rows
+        are ONLY_LONG with sine windows (meta 0)."""
+        if kind == "aac":
+            return tuple(torch.zeros_like(t) for t in like)
         z = torch.zeros_like(like)
         if kind == "opus":
             n = opus_synth.FRAME
@@ -603,13 +644,16 @@ class BatchedStreamDecoder:
             for call in range(plan.total_calls):
                 np_bufs = plan.next_bufs()
                 if np_bufs is not None:
-                    bufs = [torch.from_numpy(b).to(dev) for b in np_bufs]
+                    bufs = [tuple(torch.from_numpy(a).to(dev) for a in b)
+                            if isinstance(b, tuple)
+                            else torch.from_numpy(b).to(dev)
+                            for b in np_bufs]
                     if zero_bufs is None:
                         zero_bufs = [self._flush_buf(k, b)
                                      for k, b in zip(plan.kinds, bufs)]
                 else:
                     bufs = zero_bufs  # flush: zero input, neutral params
-                carry, out = fused_decode(self.cfg, plan.kinds, self.synth,
+                carry, out = fused_decode(self.cfg, plan.kinds, self.synths,
                                           carry, plan.stream_params, bufs)
                 i = call - plan.k0
                 if i < 0:

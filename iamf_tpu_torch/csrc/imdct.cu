@@ -55,12 +55,12 @@
 // 2 row tiles exist; the 64-wide N tile gives 32 blocks instead of 16 (a
 // 128-wide tile was slower at B = 8; PERF.md has the variants).
 
-#include <cuda.h>
-#include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include <mutex>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -86,100 +86,6 @@ constexpr int OFF_BAR = OFF_A + WGS * 2 * A_TILE;   // full, empty
 constexpr int OFF_ROWS = OFF_BAR + 2 * STAGES * 8;  // int[ROWS]
 constexpr int SMEM_BYTES = OFF_ROWS + ROWS * 4 + 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// one [BN rows x BK floats] box of a W buffer at (k, n) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int k, int n) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(n)
-      : "memory");
-}
-
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// wgmma descriptor of a K-major tile with 128-byte swizzle: rows of 128 B,
-// 8-row groups 1024 B apart (SBO), LBO unused for this layout
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-// keep the compiler from moving register reads or writes across an
-// asynchronous wgmma that uses them
-__device__ __forceinline__ void acc_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 64] = (SCALE_D ? d : 0) + a[64 x 8] . b[64 x 8]^T: a tf32 from
-// registers (this thread's fragment), b tf32 from shared memory
-template <int SCALE_D>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(SCALE_D));
-}
-
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
-}
-
 // Store 16 spectrum values per thread (rows 16w..16w+15 of the tile, lane
 // = k) into an fp32 A tile and sync the warpgroup on barrier bar.
 __device__ __forceinline__ void stage_a(const float (&v)[16], float* tile,
@@ -187,37 +93,6 @@ __device__ __forceinline__ void stage_a(const float (&v)[16], float* tile,
 #pragma unroll
   for (int j = 0; j < 16; ++j) tile[(warp * 16 + j) * A_LD + lane] = v[j];
   asm volatile("bar.sync %0, 128;" ::"r"(bar) : "memory");
-}
-
-// This thread's A fragments of one k-step, split in TF32. In the wgmma
-// fragment of an 8-deep slice kk, thread (lane) holds rows g = lane/4 and
-// g + 8 of its warp's 16 at k = lane%4 and lane%4 + 4; the staged tile
-// holds them at 8 consecutive floats, spectrum offset 8 (lane%4) + 2 kk + h
-// for k = lane%4 + 4h (W's columns are permuted to match on the host).
-__device__ __forceinline__ void load_frags(const float* tile, int warp,
-                                           int lane, uint32_t (&hi)[4][4],
-                                           uint32_t (&lo)[4][4]) {
-  const float* r0 = tile + (warp * 16 + lane / 4) * A_LD + (lane % 4) * 8;
-  const float* r1 = r0 + 8 * A_LD;
-  float x[2][8];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const float4 u = reinterpret_cast<const float4*>(r0)[q];
-    const float4 v = reinterpret_cast<const float4*>(r1)[q];
-    x[0][4 * q] = u.x, x[0][4 * q + 1] = u.y, x[0][4 * q + 2] = u.z,
-    x[0][4 * q + 3] = u.w;
-    x[1][4 * q] = v.x, x[1][4 * q + 1] = v.y, x[1][4 * q + 2] = v.z,
-    x[1][4 * q + 3] = v.w;
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // a0 (g, k), a1 (g+8, k), a2, a3 at k+4
-      const float v = x[i & 1][2 * kk + (i >> 1)];
-      const float h = tf32_rna(v);
-      hi[kk][i] = __float_as_uint(h);
-      lo[kk][i] = __float_as_uint(tf32_rna(__fsub_rn(v, h)));
-    }
 }
 
 __global__ void partition_rows(const uint8_t* __restrict__ trans, int R,
@@ -313,22 +188,10 @@ k1_product(const __grid_constant__ CUtensorMap w_long_hi,
   for (int i = 0; i < 32; ++i) part[i] = sum[i] = 0.f;
   for (int s = 0; s < KSTEPS; ++s) {
     const int st = s % STAGES;
-    load_frags(atile + (s & 1) * (A_TILE / 4), warp, lane, ahi, alo);
+    load_frags(atile + (s & 1) * (A_TILE / 4), A_LD, warp, lane, ahi, alo);
     mbar_wait(full0 + 8 * st, (s / STAGES) & 1);
-    const uint32_t b_hi = sb + OFF_B + st * 2 * B_TILE, b_lo = b_hi + B_TILE;
-    acc_fence(part);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-    wgmma_tf32<0>(part, ahi[0], sw128_desc(b_hi));
-    wgmma_tf32<1>(part, ahi[0], sw128_desc(b_lo));
-    wgmma_tf32<1>(part, alo[0], sw128_desc(b_hi));
-#pragma unroll
-    for (int kk = 1; kk < BK / 8; ++kk) {  // 32 bytes of k per instruction
-      const uint32_t o = kk * 32;
-      wgmma_tf32<1>(part, ahi[kk], sw128_desc(b_hi + o));
-      wgmma_tf32<1>(part, ahi[kk], sw128_desc(b_lo + o));
-      wgmma_tf32<1>(part, alo[kk], sw128_desc(b_hi + o));
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    const uint32_t b_hi = sb + OFF_B + st * 2 * B_TILE;
+    split_tf32_step(part, ahi, alo, b_hi, b_hi + B_TILE);
     // the other A buffer was last read before the previous step's barrier
     if (s + 1 < KSTEPS)
       stage_a(pre, atile + ((s + 1) & 1) * (A_TILE / 4), warp, lane, 1 + wg);
@@ -382,31 +245,6 @@ __global__ void k1_overlap(const float* __restrict__ window,
 
 // --- tensor maps of the W buffers ------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? (EncodeTiled)p
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A map depends only on the buffer's address (all four have one shape), so
 // a small cache keyed on the address is always right.
 bool weight_map(const void* w, CUtensorMap* out) {
@@ -420,18 +258,8 @@ bool weight_map(const void* w, CUtensorMap* out) {
       *out = maps[i];
       return true;
     }
-  EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {N, NOUT};
-  const cuuint64_t strides[1] = {N * sizeof(float)};
-  const cuuint32_t box[2] = {BK, BN};
-  const cuuint32_t elem[2] = {1, 1};
   CUtensorMap m;
-  if (enc(&m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(w), dims,
-          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
+  if (!tiled_map(w, NOUT, N, BN, BK, &m)) return false;
   keys[next] = w;
   maps[next] = m;
   next = (next + 1) % 8;

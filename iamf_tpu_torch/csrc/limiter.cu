@@ -9,11 +9,12 @@
 // The peak the gain step reads does not depend on the gain: at step k the
 // ring holds S[k:k+D], with S = ring (oldest first, from entry_index) ++
 // the batch's channel-max magnitudes. So the work splits in three phases:
-//   1. parallel: S (seq_peaks; the metering seam: a true-peak meter
-//      replaces S and nothing else), then per sample the sliding-window max
-//      W[k] = max S[k:k+D], the trigger's target end gain R[k] = thr / W[k]
-//      (IEEE division, as the recurrence computes it), and one flag per
-//      tile of TS samples, set when a W in the tile exceeds thr;
+//   1. parallel: S (seq_peaks: the ring, then max_c |x[c, n]|, or with
+//      the true-peak meter K9's peaks, csrc/truepeak.cu), then per sample
+//      the sliding-window max W[k] = max S[k:k+D], the trigger's target
+//      end gain R[k] = thr / W[k] (IEEE division, as the recurrence
+//      computes it), and one flag per tile of TS samples, set when a W in
+//      the tile exceeds thr;
 //   2. gain_walk: the attack/release recurrence of _gain_step over the
 //      batch's N samples, bit for bit (below);
 //   3. parallel: y = delayed * gain, scale by 2^(bits-1), clip, rint
@@ -64,9 +65,10 @@
 // so a step takes ~40 cycles on an H100 (PERF.md). Phases 1 and 3 move
 // ~12 MB per batch (a few microseconds of HBM time).
 
-#include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -75,9 +77,11 @@ constexpr int TS = 1024;  // samples per tile of the walk (a multiple of WT)
 constexpr int NS = 4;     // ring slots: tiles in flight
 constexpr unsigned FULL = 0xffffffffu;
 
-// S[i] = peak_data[(idx + i) % D] for i < D, else max_c |x[c, i - D]|;
-// also clears the tile flags window_max sets
+// S[i] = peak_data[(idx + i) % D] for i < D, else max_c |x[c, i - D]| or,
+// with the true-peak meter, pk[i - D]; also clears the tile flags
+// window_max sets
 __global__ void seq_peaks(const float* __restrict__ x, int C, int N,
+                          const float* __restrict__ pk,
                           const float* __restrict__ peak, const int* __restrict__ eidx,
                           int D, float* __restrict__ S, int* __restrict__ flags,
                           int ntiles) {
@@ -89,6 +93,10 @@ __global__ void seq_peaks(const float* __restrict__ x, int C, int N,
     return;
   }
   int n = i - D;
+  if (pk != nullptr) {
+    S[i] = pk[n];
+    return;
+  }
   float mx = 0.f;
   for (int c = 0; c < C; ++c) mx = fmaxf(mx, fabsf(x[(size_t)c * N + n]));
   S[i] = mx;
@@ -114,48 +122,6 @@ __global__ void window_max(const float* __restrict__ S, int N, int D, float thr,
   }
   if (__syncthreads_or(k < N && mx > thr) && threadIdx.x == 0)
     atomicOr(&flags[k0 / TS], 1);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// `bytes` (a multiple of 16) from global to shared, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // The chain's state: the envelope's endpoints, the two differences a step
@@ -417,14 +383,16 @@ int walk_smem(int MP) {
 
 }  // namespace
 
-// x: [C, N] planar mix; delay: [C, D]; peak: [D]; eidx: int[1];
+// x: [C, N] planar mix; pk: [N] the true-peak meter's peaks (K9), or null
+// for sample peaks; delay: [C, D]; peak: [D]; eidx: int[1];
 // st_in/st_out: float[4] envelope state; tabT/tabC: walk tables (MP floats
 // each, dsp/limiter.walk_tables, padded); scratch:
 // float[3 NP + D + N + 2 ntiles], NP = ntiles * TS, ntiles = ceil(N / TS),
 // 16-byte aligned;
 // out: [N, C] int16 (bits 16) or int32; delay_out [C, D]; peak_out [D];
 // eidx_out int[1].
-extern "C" int iamf_k3_limiter(const void* x, int C, int N, const void* delay,
+extern "C" int iamf_k3_limiter(const void* x, int C, int N, const void* pk,
+                               const void* delay,
                                const void* peak, const void* eidx, int D,
                                const void* st_in, float thr, const void* tabT,
                                const void* tabC, int M, int A, int MP, int bits,
@@ -444,8 +412,8 @@ extern "C" int iamf_k3_limiter(const void* x, int C, int N, const void* delay,
   const float lo = -scale;
   const float hi = (float)((1ll << (bits - 1)) - 1);
   seq_peaks<<<(D + N + 255) / 256, 256, 0, s>>>(
-      (const float*)x, C, N, (const float*)peak, (const int*)eidx, D, S, flags,
-      ntiles);
+      (const float*)x, C, N, (const float*)pk, (const float*)peak,
+      (const int*)eidx, D, S, flags, ntiles);
   window_max<<<(N + WT - 1) / WT, WT, (WT + D) * sizeof(float), s>>>(
       S, N, D, thr, W, R, flags);
   const int smem = walk_smem(MP);

@@ -19,13 +19,22 @@ since the last trigger (``walk_tables``): the envelope time tc is -1 or
 one of the values T[m] the recurrence reaches, so each coefficient is
 computed once, on the host, with the same float32 roundings.
 
+True-peak mode (LimiterConfig.true_peak; the decoder sets it from
+IAMF_TRUEPEAK=1, as the JAX decoder does): the magnitudes fed into the peak
+ring are a 4x-oversampled inter-sample peak estimate instead of max_c |x|
+(``input_peaks``): the repo's own 48-tap Hann-windowed sinc as 4 phases x
+12 taps (``truepeak_filters``), with an 11-sample history per channel
+carried across batches. On a CUDA tensor the hand-written kernel K9
+(csrc/truepeak.cu) meters and K3 reads its peaks; on a CPU tensor the plain
+twin ``truepeak_plain`` does. The rest of the limiter is unchanged.
+
 State (a dict of tensors; core/pipeline.py carries it across batches):
   env:         float32 [4] = current_gain, target_start_gain,
                target_end_gain, current_tc (-1 = idle)
   delay_data:  [C, D] delay line;  peak_data: [D] peak ring
   entry_index: int32 [1], ring slot of the oldest entry
-Only sample-peak metering is ported: a LimiterConfig with true_peak raises
-NotImplementedError (ROADMAP.md §1 item 9).
+  tp_hist:     [C, 11] the meter's last input samples, oldest first (true
+               peak only)
 """
 
 from __future__ import annotations
@@ -46,8 +55,32 @@ LIMITER_LOOKAHEAD = 240
 
 WALK_TILE = 1024  # samples per tile of K3's walk (csrc/limiter.cu TS)
 
+TP_PHASES = 4    # 4x oversampling
+TP_TAPS = 12     # taps per phase (48-tap prototype)
+TP_HIST = TP_TAPS - 1
+
 K3 = Kernel("iamf_k3_limiter",
-            [P, I, I, P, P, P, I, P, F, P, P, I, I, I, I, P, P, P, P, P, P])
+            [P, I, I, P, P, P, P, I, P, F, P, P, I, I, I, I, P, P, P, P, P,
+             P])
+K9 = Kernel("iamf_k9_truepeak", [P, P, I, I, P, P])
+
+
+@functools.lru_cache(maxsize=None)
+def truepeak_filters() -> np.ndarray:
+    """[TP_PHASES, TP_TAPS] float32 polyphase interpolation filters (a copy
+    of iamf_tpu/dsp/limiter.py's): a 48-tap Hann-windowed sinc at 1/4 band;
+    phase j holds taps h[4 i + j], applied to x[n - i], normalized to unit
+    DC gain. The reference ships no meter, so these are the repo's own
+    coefficients; csrc/truepeak.cu holds them as literals."""
+    L = TP_PHASES * TP_TAPS
+    n = np.arange(L, dtype=np.float64)
+    c = (L - 1) / 2.0
+    proto = np.sinc((n - c) / TP_PHASES) * np.hanning(L)
+    phases = np.empty((TP_PHASES, TP_TAPS), np.float64)
+    for j in range(TP_PHASES):
+        phases[j] = proto[j::TP_PHASES]
+        phases[j] /= phases[j].sum()
+    return phases.astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,13 +91,7 @@ class LimiterConfig:
     attack_sec: float = LIMITER_ATTACK_SEC
     release_sec: float = LIMITER_RELEASE_SEC
     delay_size: int = LIMITER_LOOKAHEAD
-    true_peak: bool = False  # USE_TRUEPEAK branch: not ported
-
-    def __post_init__(self):
-        if self.true_peak:
-            raise NotImplementedError(
-                "true-peak limiter metering is not ported yet (ROADMAP.md "
-                "§1 item 9)")
+    true_peak: bool = False  # USE_TRUEPEAK branch: the 4x meter
 
     @property
     def linear_threshold(self) -> float:
@@ -77,17 +104,58 @@ class LimiterConfig:
 
 def init_state(cfg: LimiterConfig, device) -> dict:
     f32 = dict(dtype=torch.float32, device=device)
-    return {
+    state = {
         "env": torch.tensor([1.0, -1.0, -1.0, -1.0], **f32),
         "delay_data": torch.zeros((cfg.channels, cfg.delay_size), **f32),
         "peak_data": torch.zeros((cfg.delay_size,), **f32),
         "entry_index": torch.zeros((1,), dtype=torch.int32, device=device),
     }
+    if cfg.true_peak:
+        state["tp_hist"] = torch.zeros((cfg.channels, TP_HIST), **f32)
+    return state
 
 
-def input_peaks(cfg: LimiterConfig, x):
-    """Per-sample channel-max magnitudes feeding the peak ring. x: [C, T]."""
-    return torch.amax(torch.abs(x), dim=0)
+def truepeak_plain(x, hist):
+    """Plain twin of K9: x [C, T], hist [C, 11] -> (peaks [T], hist').
+    win[c, t, i] = x[c, t - i] (hist[:, -1] the newest sample before x);
+    each phase sums its taps in order i = 0..11, as K9 does."""
+    K9.note_plain(x)
+    T = x.shape[1]
+    h = torch.from_numpy(truepeak_filters()).to(x.device)
+    xc = torch.cat([hist, x], dim=1)
+    acc = x.new_zeros((x.shape[0], TP_PHASES, T))
+    for i in range(TP_TAPS):
+        acc = acc + h[None, :, i, None] * xc[:, None, TP_HIST - i:
+                                             TP_HIST - i + T]
+    return torch.amax(acc.abs(), dim=(0, 1)), xc[:, -TP_HIST:]
+
+
+def truepeak_cuda(x, hist):
+    """K9 on the card: x [C, T] float32, hist [C, 11] -> (peaks, hist')."""
+    C, T = x.shape
+    if (x.dtype != torch.float32 or hist.dtype != torch.float32
+            or tuple(hist.shape) != (C, TP_HIST) or T < 1):
+        raise ValueError(f"K9 takes float32 x [C, T >= 1] and hist "
+                         f"[C, {TP_HIST}]; got {x.dtype} {list(x.shape)}, "
+                         f"{hist.dtype} {list(hist.shape)}")
+    x, hist = x.contiguous(), hist.contiguous()
+    peaks = torch.empty((T,), dtype=torch.float32, device=x.device)
+    hist_out = torch.empty((C, TP_HIST), dtype=torch.float32,
+                           device=x.device)
+    K9(x, hist, C, T, peaks, hist_out)
+    return peaks, hist_out
+
+
+def input_peaks(cfg: LimiterConfig, state: dict, x):
+    """Per-sample magnitudes feeding the peak ring (process_block
+    :150-166): max_c |x| in sample-peak mode, the true-peak meter's in
+    true-peak mode, whose history moves forward. x: [C, T] -> (peaks [T],
+    state'). The twin's route (limit_plain); on the card limit_quantize_cuda
+    runs K9 itself."""
+    if not cfg.true_peak:
+        return torch.amax(torch.abs(x), dim=0), state
+    peaks, hist = truepeak_plain(x, state["tp_hist"])
+    return peaks, dict(state, tp_hist=hist)
 
 
 def _curve_accel(v):
@@ -276,7 +344,7 @@ def limit_plain(cfg: LimiterConfig, state: dict, x, frame: int):
     """Plain twin of the limiter: the reference's fast/slow structure over
     x [C, N] (N a multiple of `frame`). Returns (state', limited [C, N])."""
     K3.note_plain(x)
-    peaks_in = input_peaks(cfg, x)
+    peaks_in, state = input_peaks(cfg, state, x)
     if _can_fast(cfg, state, peaks_in):
         return fast_pass(cfg, state, x, peaks_in)
     outs = []
@@ -289,7 +357,8 @@ def limit_plain(cfg: LimiterConfig, state: dict, x, frame: int):
 
 
 def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
-    """K3 on the card: x [C, N] -> (state', pcm [N, C] int)."""
+    """K3 on the card: x [C, N] -> (state', pcm [N, C] int). In
+    true-peak mode K9 meters x first and K3 reads its peaks."""
     C, N = x.shape
     D = cfg.delay_size
     if C != cfg.channels or x.dtype != torch.float32 or N < 1:
@@ -302,8 +371,13 @@ def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
     if any(tuple(state[k].shape) != s for k, s in shapes.items()):
         raise ValueError(f"K3 limiter state shapes: want {shapes}, got "
                          f"{ {k: tuple(state[k].shape) for k in shapes} }")
-    state = {k: state[k].contiguous() for k in shapes}
     x = x.contiguous()
+    peaks, tp = None, {}
+    if cfg.true_peak:
+        # the meter's peaks replace K3's max_c |x| (csrc/limiter.cu
+        # seq_peaks)
+        peaks, tp["tp_hist"] = truepeak_cuda(x, state["tp_hist"])
+    state = {k: state[k].contiguous() for k in shapes}
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     tab_t, tab_c, M, A, mp = _device_tables(cfg, dev)
@@ -317,8 +391,9 @@ def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
         "delay_data": torch.empty((C, D), **f32),
         "peak_data": torch.empty((D,), **f32),
         "entry_index": torch.empty((1,), dtype=torch.int32, device=dev),
+        **tp,
     }
-    K3(x, C, N, state["delay_data"], state["peak_data"],
+    K3(x, C, N, peaks, state["delay_data"], state["peak_data"],
        state["entry_index"], D, state["env"], cfg.linear_threshold,
        tab_t, tab_c, M, A, mp, bits, scratch, out, new["delay_data"],
        new["peak_data"], new["entry_index"], new["env"])

@@ -14,8 +14,12 @@ against the golden;
 K8 1e-4 at unit scale against the twin and a float64 direct convolution
 (its own fp32 overlap-save FFTs against the twin's; a few 1e-6 measured),
 1e-5 against its numpy model (tests/k8_model.py); K10 1e-5 (the same 64-
-to 128-tap fp32 dot products in another order); the binaural and 44.1 kHz
-decodes 1 LSB against the CPU run.
+to 128-tap fp32 dot products in another order); K7 1 LSB on the PCM and
+0.25 at s16 scale on the unrounded carry against the twin and its numpy
+model (tests/k7_model.py; split-TF32 product as K1's); K9 bit for bit
+(each phase sums its taps in the twin's order), and K3 fed by it 0 LSB
+with an equal state; the binaural, 44.1 kHz, AAC and true-peak decodes
+1 LSB against the CPU run.
 """
 
 import os
@@ -25,8 +29,10 @@ import pytest
 import torch
 
 import k2_model
+import k7_model
 import k8_model
 from iamf_tpu.constants import ChannelLayout
+from iamf_tpu_torch.codecs.aac import synth as aac_synth
 from iamf_tpu_torch.codecs.opus import imdct, synth
 from iamf_tpu_torch.dsp import binaural, limiter, resample
 
@@ -127,7 +133,8 @@ def _k3_chain(dev, cfg, st, xs):
         assert torch.equal(q_d.cpu(), q_p)
         assert torch.equal(s_d["env"].cpu().view(torch.int32),
                            st["env"].view(torch.int32))
-        for k in ("delay_data", "peak_data", "entry_index"):
+        assert s_d.keys() == st.keys()
+        for k in st:
             assert torch.equal(s_d[k].cpu(), st[k]), k
     return st
 
@@ -335,4 +342,102 @@ def test_output_paths_match_cpu(dev, name):
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
     k = binaural.K8 if "hrm1" in name else resample.K10
     assert k.launches > 0 and limiter.K3.launches > 0
+    assert all(k.plain_on_cuda == 0 for k in kernels)
+
+
+# (window_sequence, window_shape, previous shape) of each row
+K7_PATTERNS = {
+    "all-long": lambda rng, B, L: np.zeros((B, L, 3), np.int32),
+    "all-short": lambda rng, B, L: np.tile(np.array([2, 1, 0], np.int32),
+                                           (B, L, 1)),
+    "every-case": lambda rng, B, L: np.array(
+        [[(q, h, p) for q in range(4) for h in range(2)
+          for p in range(2)][i] for i in rng.randint(16, size=B * L)],
+        np.int32).reshape(B, L, 3),
+}
+
+
+@pytest.mark.parametrize("pattern", sorted(K7_PATTERNS))
+@pytest.mark.parametrize("B,L", [(1, 12), (8, 12), (128, 12), (3, 1)])
+def test_k7_matches_plain(dev, B, L, pattern):
+    """K7 against its twin and its numpy model over two consecutive calls
+    with the carry chained from a live one."""
+    rng = np.random.RandomState(B * 10 + L)
+    tabs_d, tabs_c = aac_synth.Tables().to(dev), aac_synth.Tables()
+    carry_c = torch.from_numpy(
+        (rng.randn(L, 1024) * 3000).astype(np.float32))
+    carry_d, carry_m = carry_c.to(dev), carry_c.numpy()
+    for _ in range(2):
+        spec = (rng.randn(B, L, 1024) * 3000).astype(np.float32)
+        meta = K7_PATTERNS[pattern](rng, B, L)
+        launches = aac_synth.K7.launches
+        y, carry_d = aac_synth.synthesize(
+            tabs_d, torch.from_numpy(spec).to(dev),
+            torch.from_numpy(meta).to(dev), carry_d)
+        assert aac_synth.K7.launches == launches + 1
+        y_p, carry_c = aac_synth.synthesize(
+            tabs_c, torch.from_numpy(spec), torch.from_numpy(meta), carry_c)
+        y_m, carry_m = k7_model.synthesize(spec, meta, carry_m)
+        assert y.shape == (B, L, 1024) and carry_d.shape == (L, 1024)
+        assert ((y.cpu() - y_p) * 32768).abs().max() <= 1
+        assert np.abs(y.cpu().numpy() - y_m).max() * 32768 <= 1
+        assert (carry_d.cpu() - carry_c).abs().max() < 0.25
+        assert np.abs(carry_d.cpu().numpy() - carry_m).max() < 0.25
+
+
+@pytest.mark.parametrize("C,N", [(2, 7), (2, 1000), (12, 122880),
+                                 (2, 122880)])
+def test_k9_matches_plain(dev, C, N):
+    """K9's peaks and history bit for bit against the twin over two
+    batches from a nonzero history; then K3 fed by K9 against the twin's
+    true-peak limiter, 0 LSB and an equal state (tp_hist included)."""
+    rng = np.random.RandomState(C * 7 + N)
+    hist_c = _noise(rng, C, limiter.TP_HIST, 0.5)
+    hist_d = hist_c.to(dev)
+    xs = [_noise(rng, C, N, 0.5) for _ in range(2)]
+    for x in xs:
+        launches = limiter.K9.launches
+        pk_d, hist_d = limiter.truepeak_cuda(x.to(dev), hist_d)
+        assert limiter.K9.launches == launches + 1
+        pk_c, hist_c = limiter.truepeak_plain(x, hist_c)
+        assert torch.equal(pk_d.cpu(), pk_c)
+        assert torch.equal(hist_d.cpu(), hist_c)
+    cfg = limiter.LimiterConfig(channels=C, true_peak=True)
+    st = limiter.init_state(cfg, "cpu")
+    st["tp_hist"] = _noise(rng, C, limiter.TP_HIST, 0.5)
+    _k3_chain(dev, cfg, st, xs)
+
+
+CODEC_PATHS = {
+    "aac714_ssJ": lambda s: (s.build_aac_layout_stream(
+        ChannelLayout.L714, n_frames=20, seed=4)[0],
+        dict(sound_system=9, batch_frames=8), (aac_synth.K7, limiter.K3)),
+    "aac51_loud_binaural": lambda s: (s.build_aac_layout_stream(
+        ChannelLayout.L510, n_frames=20, seed=5, gain_offset=8, hrm=1)[0],
+        dict(binaural=True, batch_frames=8), (aac_synth.K7, binaural.K8)),
+    "truepeak_51": lambda s: (s.build_pcm_layout_stream(
+        ChannelLayout.L510, n_frames=24,
+        pcm_override=s.isp_tone_pcm(24, 6))[0],
+        dict(sound_system=1, batch_frames=8), (limiter.K9, limiter.K3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CODEC_PATHS))
+def test_codec_paths_match_cpu(dev, name, monkeypatch):
+    """AAC (K7) and IAMF_TRUEPEAK=1 (K9 feeding K3) decodes on the card
+    against the CPU run, over three batches."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.tools import streams
+
+    data, kw, must = CODEC_PATHS[name](streams)
+    if name.startswith("truepeak"):
+        monkeypatch.setenv("IAMF_TRUEPEAK", "1")
+    kernels = (aac_synth.K7, limiter.K9, limiter.K3, binaural.K8)
+    for k in kernels:
+        k.reset()
+    got = BatchedStreamDecoder(data, device=dev, **kw).decode_all()
+    want = BatchedStreamDecoder(data, device="cpu", **kw).decode_all()
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    assert all(k.launches > 0 for k in must)
     assert all(k.plain_on_cuda == 0 for k in kernels)

@@ -59,27 +59,24 @@ def test_decode_all_matches_jax(name):
                                                (None, True)])
 def test_truepeak_switch(monkeypatch, truepeak, limiter):
     """IAMF_TRUEPEAK=1 asks the device limiter to meter true peaks, as it
-    does the JAX decoder's (iamf_tpu/core/batch_decoder.py:539): the port
-    refuses it by name until it is ported. Without the limiter, or with
-    the switch unset, the decode runs as before."""
+    does the JAX decoder's (iamf_tpu/core/batch_decoder.py:539): both
+    decoders read it at construction and agree within 1 LSB. Without the
+    limiter, or with the switch unset, the decode runs as before."""
     if truepeak is None:
         monkeypatch.delenv("IAMF_TRUEPEAK", raising=False)
     else:
         monkeypatch.setenv("IAMF_TRUEPEAK", truepeak)
 
-    def decode():
-        return BatchedStreamDecoder(_stream("pcm714"), sound_system=9,
-                                    batch_frames=8, limiter=limiter,
-                                    device="cpu").decode_all()
-
+    got = BatchedStreamDecoder(_stream("pcm714"), sound_system=9,
+                               batch_frames=8, limiter=limiter,
+                               device="cpu").decode_all()
     if truepeak and limiter:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            decode()
-        return
-    got = decode()
-    want = (_jax_decode("pcm714") if limiter else JaxDecoder(
-        _stream("pcm714"), sound_system=9, batch_frames=8,
-        limiter=False).decode_all())
+        want = JaxDecoder(_stream("pcm714"), sound_system=9,
+                          batch_frames=8).decode_all()
+    else:
+        want = (_jax_decode("pcm714") if limiter else JaxDecoder(
+            _stream("pcm714"), sound_system=9, batch_frames=8,
+            limiter=False).decode_all())
     assert got.shape == want.shape
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
 

@@ -54,6 +54,7 @@ def test_decode_without_jax():
 
 
 NOJAX_OUTPUT_PATHS = r"""
+import os
 import sys
 sys.modules["jax"] = None
 sys.modules["iamf_tpu"] = None
@@ -69,23 +70,33 @@ resampled = BatchedStreamDecoder(
     streams.build_pcm_layout_stream(ChannelLayout.STEREO, n_frames=8,
                                     rate=44100)[0],
     sound_system=0, batch_frames=3, device="cpu").decode_all()
-np.savez(sys.argv[2], binaural=binaural, resampled=resampled)
+aac = BatchedStreamDecoder(
+    streams.build_aac_layout_stream(ChannelLayout.L510, n_frames=9)[0],
+    sound_system=1, batch_frames=4, device="cpu").decode_all()
+os.environ["IAMF_TRUEPEAK"] = "1"
+truepeak = BatchedStreamDecoder(
+    streams.build_pcm_51_stream(n_frames=8, amp=0.9)[0], sound_system=1,
+    batch_frames=3, device="cpu").decode_all()
+np.savez(sys.argv[2], binaural=binaural, resampled=resampled, aac=aac,
+         truepeak=truepeak)
 assert not any(m.split(".")[0] in ("jax", "iamf_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("NOJAX-OK")
 """
 
 
-def test_output_paths_without_jax(tmp_path):
-    """A binaural (M2B, K8's twin) and a 44.1 kHz (K10's twin) decode with
-    JAX and the JAX package blocked, on streams from the port's own
-    builders, held to the JAX decoder here on the same streams from
-    tests/vectors.py: <= 1 LSB, same shape."""
+def test_output_paths_without_jax(tmp_path, monkeypatch):
+    """A binaural (M2B, K8's twin), a 44.1 kHz (K10's twin), an AAC (K7's
+    twin) and a true-peak (IAMF_TRUEPEAK=1, K9's twin) decode with JAX and
+    the JAX package blocked, on streams from the port's own builders, held
+    to the JAX decoder here on the same streams (from tests/vectors.py
+    where it has the builder): <= 1 LSB, same shape."""
     import numpy as np
 
     import vectors
     from iamf_tpu.constants import ChannelLayout
     from iamf_tpu.core.batch_decoder import BatchedStreamDecoder as Jax
+    from iamf_tpu_torch.tools import streams
 
     out = tmp_path / "out.npz"
     r = subprocess.run([sys.executable, "-c", NOJAX_OUTPUT_PATHS, ROOT,
@@ -100,7 +111,13 @@ def test_output_paths_without_jax(tmp_path):
         "resampled": Jax(vectors.build_pcm_layout_stream(
             ChannelLayout.STEREO, n_frames=8, rate=44100)[0],
             sound_system=0, batch_frames=3).decode_all(),
+        "aac": Jax(streams.build_aac_layout_stream(
+            ChannelLayout.L510, n_frames=9)[0], sound_system=1,
+            batch_frames=4).decode_all(),
     }
+    monkeypatch.setenv("IAMF_TRUEPEAK", "1")
+    want["truepeak"] = Jax(vectors.build_pcm_51_stream(n_frames=8, amp=0.9)[0],
+                           sound_system=1, batch_frames=3).decode_all()
     for k, w in want.items():
         w = np.asarray(w)
         assert got[k].shape == w.shape, k
@@ -177,6 +194,7 @@ def test_default_device_is_the_card():
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel's wrapper never hands a CPU pointer to the device: it
     raises before building or loading anything."""
+    from iamf_tpu_torch.codecs.aac import synth as aac_synth
     from iamf_tpu_torch.codecs.opus import imdct, synth
     from iamf_tpu_torch.constants import ChannelLayout
     from iamf_tpu_torch.dsp import binaural, limiter, resample
@@ -198,6 +216,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         "K10": lambda: resample.resample_cuda(
             resample.ResamplePlan(44100, 48000, device="cpu"),
             torch.zeros(2, 960)),
+        "K7": lambda: aac_synth.synthesize_cuda(
+            aac_synth.Tables(), torch.zeros(1, 2, 1024),
+            torch.zeros(1, 2, 3, dtype=torch.int32), torch.zeros(2, 1024)),
+        "K9": lambda: limiter.truepeak_cuda(torch.zeros(2, 960),
+                                            torch.zeros(2, 11)),
     }
     for name, call in calls.items():
         with pytest.raises(ValueError, match="CUDA device"):

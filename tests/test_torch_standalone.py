@@ -20,8 +20,6 @@ import dataclasses
 import enum
 import filecmp
 import os
-import re
-import struct
 
 import numpy as np
 import pytest
@@ -268,54 +266,16 @@ def test_pcm_decodes_match():
                           je.codec.decode([p[2] for p in pkts]))
 
 
-def _crc8(data):
-    crc = 0
-    for b in data:
-        crc ^= b
-        for _ in range(8):
-            crc = ((crc << 1) ^ 0x07) & 0xFF if crc & 0x80 else (crc << 1) & 0xFF
-    return crc
-
-
-def _crc16(data):
-    crc = 0
-    for b in data:
-        crc ^= b << 8
-        for _ in range(8):
-            crc = ((crc << 1) ^ 0x8005) & 0xFFFF if crc & 0x8000 else \
-                (crc << 1) & 0xFFFF
-    return crc
-
-
-def _flac_frame(pcm, number):
-    """One FLAC frame of 16-bit PCM [n, ch] at 48 kHz, independent
-    channels, each a VERBATIM subframe (RFC 9639 §9)."""
-    n, ch = pcm.shape
-    head = bytes([0xFF, 0xF8, 0x7A, ((ch - 1) << 4) | 0x08, number])
-    head += struct.pack(">H", n - 1)
-    head += bytes([_crc8(head)])
-    body = b"".join(b"\x02" + pcm[:, c].astype(">i2").tobytes()
-                    for c in range(ch))
-    frame = head + body
-    return frame + struct.pack(">H", _crc16(frame))
-
-
-def _flac_conf(block, ch):
-    """METADATA_BLOCK_HEADER (last, STREAMINFO) + STREAMINFO."""
-    info = struct.pack(">HH", block, block) + b"\0" * 6
-    v = (48000 << 44) | ((ch - 1) << 41) | (15 << 36)  # 20+3+5+36 bits
-    info += v.to_bytes(8, "big") + b"\0" * 16
-    return bytes([0x80]) + len(info).to_bytes(3, "big") + info
-
-
 def test_flac_decodes_match():
     """A stereo and a mono FLAC substream (hand-built VERBATIM frames: the
     repo cannot encode FLAC offline) through both packages' FLACDecoder."""
     T = 960
     src = vectors.sine_pcm(3 * T, 3, amp=0.6, seed=4)
-    pkts = [[_flac_frame(src[f * T:(f + 1) * T, 0:2], f) for f in range(3)],
-            [_flac_frame(src[f * T:(f + 1) * T, 2:3], f) for f in range(3)]]
-    conf = _flac_conf(T, 2)
+    pkts = [[streams.flac_frame(src[f * T:(f + 1) * T, 0:2], f)
+             for f in range(3)],
+            [streams.flac_frame(src[f * T:(f + 1) * T, 2:3], f)
+             for f in range(3)]]
+    conf = streams.flac_conf(T, 2)
     assert plain(pflac.parse_streaminfo(conf)) == plain(
         jflac.parse_streaminfo(conf))
     dj = jflac.FLACDecoder(conf, 2, 1, T)
@@ -328,76 +288,17 @@ def test_flac_decodes_match():
                           dj.decode([p[1] for p in pkts]))
 
 
-def _aac_tables():
-    """The Huffman and band tables the native AAC decoder reads, from
-    native/src/aac/aac_tables.cc."""
-    src = open(os.path.join(ROOT, "native", "src", "aac",
-                            "aac_tables.cc")).read()
-    out = {}
-    for name in ("kBook11Codes", "kBook11Lens", "kScfCodes", "kScfLens",
-                 "kSfbOffLong"):
-        body = re.search(rf"{name}\[\d+\] = \{{([^}}]*)\}}", src).group(1)
-        out[name] = [int(v) for v in body.split(",") if v.strip()]
-    return out
-
-
-class _BitWriter:
-    def __init__(self):
-        self.bits = []
-
-    def put(self, v, n):
-        self.bits += [(int(v) >> (n - 1 - i)) & 1 for i in range(n)]
-
-    def bytes(self):
-        b = self.bits + [0] * (-len(self.bits) % 8)
-        return np.packbits(np.array(b, np.uint8)).tobytes()
-
-
-def _aac_ics(w, rng, tab, max_sfb=20):
-    """One long-window individual_channel_stream at 48 kHz (ISO/IEC
-    14496-3 4.4.2.7): one section of codebook 11 over max_sfb bands,
-    scalefactors stepping by -3..3, random pairs with their sign bits."""
-    w.put(140, 8)                                   # global_gain
-    w.put(0, 1), w.put(0, 2), w.put(rng.randint(2), 1)  # ONLY_LONG, shape
-    w.put(max_sfb, 6), w.put(0, 1)                  # no predictor
-    w.put(11, 4), w.put(max_sfb, 5)                 # the section
-    for d in rng.randint(-3, 4, max_sfb):
-        w.put(tab["kScfCodes"][d + 60], tab["kScfLens"][d + 60])
-    w.put(0, 3)                                     # no pulse, TNS, SSR
-    off = tab["kSfbOffLong"][3 * 52:]               # sampling index 3
-    for _ in range(off[max_sfb] // 2):
-        pair = rng.randint(0, 16, 2) * (rng.rand(2) < 0.6)
-        i = pair[0] * 17 + pair[1]
-        w.put(tab["kBook11Codes"][i], tab["kBook11Lens"][i])
-        for v in pair:
-            if v:
-                w.put(rng.randint(2), 1)
-
-
-def _aac_block(rng, tab, nch):
-    """A raw_data_block of one SCE (nch 1) or one CPE without a common
-    window (nch 2), then END."""
-    w = _BitWriter()
-    w.put(nch - 1, 3), w.put(0, 4)                  # SCE / CPE, tag 0
-    if nch == 2:
-        w.put(0, 1)
-    for _ in range(nch):
-        _aac_ics(w, rng, tab)
-    w.put(7, 3)
-    return w.bytes()
-
-
 def test_aac_decodes_match():
     """A stereo and a mono AAC-LC substream (hand-built raw data blocks:
     the repo cannot encode AAC offline) through both packages'
     AACDecoder: PCM frame by frame, the concealment of a lost packet, and
     batched spectra."""
-    tab = _aac_tables()
+    tab = streams.aac_tables()
     rng = np.random.RandomState(9)
-    frames = [[_aac_block(rng, tab, 2), _aac_block(rng, tab, 1)]
+    frames = [[streams.aac_block(rng, tab, 2), streams.aac_block(rng, tab, 1)]
               for _ in range(4)]
     # AudioSpecificConfig: AAC-LC (2), 48 kHz (index 3), 2 channels
-    conf = vectors.aac_decoder_config(bytes([0x11, 0x90]))
+    conf = vectors.aac_decoder_config(streams.AAC_ASC)
     dj, dp = (m.AACDecoder(conf, 2, 1, 1024) for m in (jaac, paac))
     for f in frames + [[None, frames[0][1]]]:
         want = dj.decode(f)
@@ -455,6 +356,8 @@ STREAM_ARGS = {
         ((), dict(order=3, n_frames=2, projection=True))],
     "build_two_element_stream": [((), dict(n_frames=2, gain2_q78=-(3 << 8),
                                            hrm=1))],
+    "aac_decoder_config": [((bytes([0x11, 0x90]),), {}),
+                           ((bytes([0x11, 0x88]),), dict(avg_bitrate=64000))],
 }
 
 
