@@ -45,11 +45,12 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
   8. kernels of the AAC and true-peak paths: K7 (AAC filterbank) at
      B=128 and B=8 with every (sequence, shape, previous shape) and a live
      carry over two consecutive calls, against its twin (1 LSB; the
-     unrounded carry within 0.25 at s16 scale), its product kernel's SASS
-     holding HGMMA and UTMALDG; K9 (true-peak meter) at [12, 122,880] and
-     [2, 122,880] from a nonzero history over two batches; each with its
-     times, its twin's, its bound and its one-call yardstick (torch.matmul
-     of the long product; F.conv1d of the FIR);
+     unrounded carry within 0.25 at s16 scale), one device launch a call
+     and no local memory in its SASS; K9 (true-peak meter) at [12, 122,880]
+     and [2, 122,880] from a nonzero history over two batches, one device
+     launch a call, no local memory and no fused multiply-add in its SASS;
+     each with its times, its twin's, its bound and its one-call
+     yardstick (torch.matmul of the long product; F.conv1d of the FIR);
   9. AAC at full width: 30 s of 7.1.4 AAC-LC (1407 frames, short blocks
      included; streams.build_aac_layout_stream) -> sound system J at
      batch_frames=128, limiter on, against the CPU run, with its realtime
@@ -65,7 +66,11 @@ to 0 just before that run; its
 bound_ms is the larger of bytes over 3.35 TB/s and operations over the
 peak of their type (H100 SXM), from the row's own inputs, counting the
 fewest operations the function needs (K8: an FFT convolution; K3: a
-sliding window max; K7: FFT IMDCTs).
+sliding window max; K1 and K7: FFT IMDCTs; K9: its distinct products).
+A device time comes from a torch.profiler trace; where the trace missed
+events or recorded none, a line names the measurement and its stand-in.
+A device launch count is the kernel nodes of a CUDA graph captured from
+one call.
 The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without that line; so does a machine without a
 visible CUDA device.
@@ -73,6 +78,7 @@ visible CUDA device.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -133,21 +139,101 @@ def cuda_ms(fn, reps: int = 20, warm: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int = 20) -> tuple[float, dict]:
-    """Device time per call of fn() in ms from a torch.profiler trace of
-    `reps` calls after a warm-up: the total over every kernel and memset,
-    and the time of each by name."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_trace(fn, reps: int):
+    """({name: (device us, events)}, complete) of every kernel, memset and
+    copy in a torch.profiler trace of `reps` calls of fn() after a
+    warm-up; complete when every name's events are a multiple of reps (a
+    trace may lose a window's first events, or all of them, the more
+    often the more the process has traced). The profiler's own warm-up
+    step (one call, not reported) lets the tracing start before the
+    reported calls. Traced again, up to five times, while it holds no
+    event; ({}, False) if every trace was empty."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    per = {ev.key: ev.self_device_time_total / reps / 1e3
-           for ev in prof.key_averages() if ev.self_device_time_total > 0}
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        per = {ev.key: (ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages() if ev.self_device_time_total > 0}
+        if per:
+            return per, all(n % reps == 0 for _, n in per.values())
+    return {}, False
+
+
+def device_ms(fn, label: str, reps: int = 20) -> tuple[float, dict]:
+    """Device time per call of fn() in ms from a torch.profiler trace of
+    `reps` calls after a warm-up: the total over every kernel and memset,
+    and the time of each by name. Where the trace missed events, each
+    name's mean event times its events a call, rounded (at least one);
+    where no trace records anything, the time of calls queued back to
+    back (queued_ms). Either stand-in is printed, under `label`."""
+    trace, complete = _device_trace(fn, reps)
+    if not trace:
+        ms = queued_ms(fn)
+        print(f"{label}: torch.profiler recorded nothing in five traces; "
+              f"its device time is queued_ms, {ms:.4f} ms (CUDA events "
+              "around queued calls, launch gaps included)")
+        return ms, {"queued calls (CUDA events)": ms}
+    if not complete:
+        short = sorted(k[:40] for k, (_, n) in trace.items() if n % reps)
+        print(f"{label}: the trace missed events of {short}; their device "
+              "time is the mean event x its events a call, rounded")
+    per = {k: us / n * max(1, round(n / reps)) / 1e3
+           for k, (us, n) in trace.items()}
     return sum(per.values()), per
+
+
+def device_launches(fn) -> int:
+    """Device kernel launches per call of fn(): the kernel nodes of a CUDA
+    graph captured from one call. Exact, where a torch.profiler trace is
+    not: in a process that has traced many times, traces lose a window's
+    first events, or all of them."""
+    rt = ctypes.CDLL("libcudart.so.12")
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(rt.cudaGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+          "cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(rt.cudaGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+          "cudaGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0,
+              "cudaGraphNodeGetType failed")
+        kernels += kind.value == 0  # cudaGraphNodeTypeKernel
+    return kernels
+
+
+def queued_ms(fn, reps: int = 50) -> float:
+    """Device time per call of fn() in ms by CUDA events around `reps`
+    calls queued behind a spin kernel, so that they run back to back:
+    each call's kernels and the gaps between launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms: the host queues meanwhile
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 def host_ms(fn) -> tuple[float, object]:
@@ -204,6 +290,26 @@ def sass_counts(lib, kernel: str, opcodes) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", funcs[0])) for op in opcodes}
 
 
+def fft_imdct_flops(n: int) -> float:
+    """The fewest fp32 operations of an n-output IMDCT: an n/4-point
+    complex FFT (5 (n/4) log2(n/4) flops) with pre- and post-twiddles (12
+    flops a point)."""
+    q = n // 4
+    return 5 * q * math.log2(q) + 12 * q
+
+
+def k1_ops(trans) -> float:
+    """The fewest fp32 operations of K1's function on these rows, on K7's
+    rule (imdct_ops): a 1920-output FFT IMDCT per long row, eight
+    240-output ones per short row; then a multiply and an add per sample
+    of the 120-sample window overlap and of the 60-sample tail."""
+    short = int(trans.sum())
+    rows = trans.numel()
+    return ((rows - short) * fft_imdct_flops(2 * FRAME)
+            + short * 8 * fft_imdct_flops(2 * FRAME // 8)
+            + rows * 2 * (120 + 60))
+
+
 def k1_phase(dev, tag, lib):
     from iamf_tpu_torch.codecs.opus import imdct
 
@@ -235,10 +341,10 @@ def k1_phase(dev, tag, lib):
         plain = cuda_ms(lambda: imdct.imdct_overlap_plain(mats, freq, trans,
                                                           tail0))
         dev_ms, per = device_ms(lambda: imdct.imdct_overlap_cuda(
-            mats, freq, trans, tail0))
+            mats, freq, trans, tail0), f"K1 [B={B}]")
         prod = sum(v for k, v in per.items() if "k1_product" in k)
         dev_plain, _ = device_ms(lambda: imdct.imdct_overlap_plain(
-            mats, freq, trans, tail0))
+            mats, freq, trans, tail0), f"K1's twin [B={B}]")
         gflop = B * LANES * FRAME * (FRAME + 60) * 2 / 1e9
         print(f"K1 time [B={B}] {ms:.4f} ms per call ({gflop / ms:.2f} "
               f"TFLOP/s of useful fp32-equivalent work, split-TF32 tensor "
@@ -248,12 +354,15 @@ def k1_phase(dev, tag, lib):
               f"{tag}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if B == B_MAIN:
-            # three TF32 products (hi·hi + hi·lo + lo·hi) per useful MAC
-            b = bound(nbytes(freq, trans, tail0, y, tail), 3 * gflop * 1e9,
-                      TF32_FLOPS)
+            # the fewest operations (FFT IMDCTs), as K7's bound counts them
+            ops = k1_ops(trans)
+            b = bound(nbytes(freq, trans, tail0, y, tail), ops, FP32_FLOPS)
             print(f"K1 bound [B={B}] {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']}); yardstick: the twin's torch.matmul "
-                  f"(cuBLAS fp32) {dev_plain:.4f} ms of device time")
+                  f"({b['bound_by']}; {ops / 1e6:.1f} M flops by FFT "
+                  f"IMDCTs); the dense split-TF32 product's: "
+                  f"{3 * gflop / TF32_FLOPS * 1e12:.4f} ms at the TF32 "
+                  f"peak; yardstick: the twin's torch.matmul (cuBLAS fp32) "
+                  f"{dev_plain:.4f} ms of device time")
             row.update(ms=ms, plain_ms=plain, library_ms=dev_plain, **b)
     return row
 
@@ -366,7 +475,7 @@ def k2_phase(dev, tag):
         check(m_err <= m_tol, f"K2's de-emphasis memory differs: {m_err}")
         check(np.array_equal(steps, want), "K2's phase A steps differ")
         ms = cuda_ms(k2)
-        dev_ms, per = device_ms(k2)
+        dev_ms, per = device_ms(k2, f"K2 {name}")
         a = sum(v for k, v in per.items() if "comb_kernel" in k)
         b_ = sum(v for k, v in per.items() if "deemph_kernel" in k)
         print(f"K2 {name} time {ms:.4f} ms per call (the first design: "
@@ -488,7 +597,7 @@ def k3_phase(dev, tag, lib):
         row["max_abs_err"] = max(row["max_abs_err"], float(err))
         ms = cuda_ms(lambda: limiter.limit_quantize_cuda(cfg, st, x, 16))
         dev_ms, per = device_ms(
-            lambda: limiter.limit_quantize_cuda(cfg, st, x, 16))
+            lambda: limiter.limit_quantize_cuda(cfg, st, x, 16), f"K3 {name}")
         walk = sum(v for k, v in per.items() if "gain_walk" in k)
         out = torch.empty((N, C), dtype=torch.int16)
         D = cfg.delay_size
@@ -592,8 +701,8 @@ def pcm_phase(dev, tag):
 def _twin_times(tag, name, fast, plain, reps=20, plain_reps=20):
     ms = cuda_ms(fast, reps=reps)
     plain_ms = cuda_ms(plain, reps=plain_reps, warm=1)
-    dev_ms, _ = device_ms(fast, reps=reps)
-    dev_plain, _ = device_ms(plain, reps=plain_reps)
+    dev_ms, _ = device_ms(fast, name, reps=reps)
+    dev_plain, _ = device_ms(plain, f"{name}'s twin", reps=plain_reps)
     print(f"{name} time {ms:.4f} ms per call, plain twin {plain_ms:.4f} ms; "
           f"device time per call {dev_ms:.4f} ms, twin {dev_plain:.4f} ms "
           f"{tag}")
@@ -685,7 +794,8 @@ def k8_library(tag, h, x, ov, y_p, o_p):
           f"(bound 1e-4)")
     check(err <= 1e-4, f"F.conv1d disagrees with K8's twin: {err}")
     ms = cuda_ms(lambda: F.conv1d(x[None], w, padding=taps - 1))
-    dev, per = device_ms(lambda: F.conv1d(x[None], w, padding=taps - 1))
+    dev, per = device_ms(lambda: F.conv1d(x[None], w, padding=taps - 1),
+                         "F.conv1d for K8")
     top = max(per, key=per.get) if per else "none"
     print(f"F.conv1d [{x.shape[0]} -> 2, {N}]: {ms:.4f} ms per call, "
           f"device {dev:.4f} ms ({top[:60]}) {tag}")
@@ -740,7 +850,7 @@ def k10_library(tag, plan, x, y_p):
           f"stride {num}]: max|diff| vs twin {err:.3e} (bound 1e-5)")
     check(err <= 1e-5, f"F.conv1d disagrees with K10's twin: {err}")
     ms = cuda_ms(conv)
-    dev_ms, per = device_ms(conv)
+    dev_ms, per = device_ms(conv, "F.conv1d for K10")
     top = max(per, key=per.get) if per else "none"
     print(f"F.conv1d [{C}, {T}] -> [{C}, {den}, {m}]: {ms:.4f} ms per "
           f"call, device {dev_ms:.4f} ms ({top[:60]}) {tag}")
@@ -802,7 +912,8 @@ def k10_k3_phase(dev, tag):
     ms = cuda_ms(lambda: limiter.limit_quantize_cuda(cfg, st, x_d, 16),
                  reps=5, warm=1)
     dev_ms, per = device_ms(
-        lambda: limiter.limit_quantize_cuda(cfg, st, x_d, 16), reps=5)
+        lambda: limiter.limit_quantize_cuda(cfg, st, x_d, 16), "K3 after K10",
+        reps=5)
     walk = sum(v for k, v in per.items() if "gain_walk" in k)
     print(f"K3 [{LANES}, {xs.shape[1]}] time {ms:.4f} ms per call, device "
           f"{dev_ms:.4f} ms (gain walk {walk:.4f} ms); plain twin on the "
@@ -833,19 +944,14 @@ def k7_inputs(B, dev, seed):
 
 def imdct_ops(meta) -> float:
     """The fewest fp32 operations of K7's function on these rows: an FFT
-    IMDCT of n outputs is an n/4-point complex FFT (5 (n/4) log2(n/4)
-    flops) with pre- and post-twiddles (12 flops a point), one per long
-    row (n = 2048) and eight per short row (n = 256); a multiply per
-    windowed sample, an add per overlapped one inside a short frame; an add
-    and 4 for the rounding per output sample."""
-    def fft_imdct(n):
-        q = n // 4
-        return 5 * q * math.log2(q) + 12 * q
-
+    IMDCT (fft_imdct_flops) per long row (n = 2048) and eight per short
+    row (n = 256); a multiply per windowed sample, an add per overlapped
+    one inside a short frame; an add and 4 for the rounding per output
+    sample."""
     short = int((meta[..., 0] == 2).sum())
     rows = meta[..., 0].numel()
-    return ((rows - short) * (fft_imdct(2048) + 2048)
-            + short * (8 * fft_imdct(256) + 2048 + 7 * 128)
+    return ((rows - short) * (fft_imdct_flops(2048) + 2048)
+            + short * (8 * fft_imdct_flops(256) + 2048 + 7 * 128)
             + rows * 1024 * 5)
 
 
@@ -860,7 +966,7 @@ def k7_library(tag, tabs, spec):
         return torch.matmul(x, b)
 
     ms = cuda_ms(mm)
-    dev_ms, _ = device_ms(mm)
+    dev_ms, _ = device_ms(mm, "torch.matmul for K7")
     print(f"torch.matmul yardstick for K7 [{x.shape[0]}, 1024] x [1024, "
           f"2048]: {ms:.4f} ms per call, device {dev_ms:.4f} ms {tag}")
     return ms
@@ -869,17 +975,20 @@ def k7_library(tag, tabs, spec):
 def k7_phase(dev, tag, lib):
     from iamf_tpu_torch.codecs.aac import synth as aac
 
-    counts = sass_counts(lib, "k7_product", ("HGMMA", "UTMALDG"))
-    print(f"K7 product kernel SASS: {counts}")
-    check(all(counts.values()), f"K7 misses tensor cores or TMA: {counts}")
+    counts = sass_counts(lib, "k7_synth", ("LDL", "STL"))
+    print(f"K7 kernel SASS local memory instructions: {counts}")
+    check(not any(counts.values()), f"K7 spills to local memory: {counts}")
     tabs = aac.Tables().to(dev)
+    fill = aac.k7_fill(dev)
     row = dict(name="k7_aac_synth", max_abs_err=0.0)
     for B in (B_MAIN, B_OPUS):
         _, _, c_d = k7_inputs(B, dev, B)
         c_p = c_d
         for call in range(2):  # the carry chained from one call to the next
             spec, meta, _ = k7_inputs(B, dev, 10 * B + call)
+            n0 = aac.K7.launches
             y, c_d = aac.synthesize_cuda(tabs, spec, meta, c_d)
+            check(aac.K7.launches == n0 + 1, "K7 counted other than once")
             y_p, c_p = aac.synthesize_plain(tabs, spec, meta, c_p)
             torch.cuda.synchronize()
             lsb = float((y - y_p).abs().max()) * 32768
@@ -890,19 +999,23 @@ def k7_phase(dev, tag, lib):
             check(lsb <= 1 and err < 0.25,
                   f"K7 disagrees with its plain twin: {lsb} LSB, {err}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
-        ms = cuda_ms(lambda: aac.synthesize_cuda(tabs, spec, meta, c_d))
+
+        def k7():
+            return aac.synthesize_cuda(tabs, spec, meta, c_d)
+
+        ms = cuda_ms(k7)
         plain = cuda_ms(lambda: aac.synthesize_plain(tabs, spec, meta, c_d))
-        dev_ms, per = device_ms(
-            lambda: aac.synthesize_cuda(tabs, spec, meta, c_d))
-        parts = {n: sum(v for k, v in per.items() if n in k)
-                 for n in ("k7_product", "k7_window", "k7_overlap")}
+        dev_ms, _ = device_ms(k7, f"K7 [B={B}]")
+        n_dev = device_launches(k7)
+        check(n_dev == 1, f"K7 made {n_dev} device launches a call")
         dev_plain, _ = device_ms(
-            lambda: aac.synthesize_plain(tabs, spec, meta, c_d))
+            lambda: aac.synthesize_plain(tabs, spec, meta, c_d),
+            f"K7's twin [B={B}]")
         print(f"K7 time [B={B}] {ms:.4f} ms per call, plain twin "
               f"(torch.matmul fp32, both paths) {plain:.4f} ms; device time "
-              f"per call {dev_ms:.4f} ms ("
-              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
-              + f"), twin {dev_plain:.4f} ms {tag}")
+              f"per call {dev_ms:.4f} ms in {n_dev} launch "
+              f"(run {aac.k7_run(B, LANES, fill)} of {fill} warps the card "
+              f"holds), twin {dev_plain:.4f} ms {tag}")
         if B == B_MAIN:
             ops = imdct_ops(meta)
             b = bound(nbytes(spec, meta, c_d, y, c_d), ops, FP32_FLOPS)
@@ -941,25 +1054,58 @@ def k9_library(tag, x, hist, pk_p):
           f"max|diff| vs twin {err:.3e} (bound 1e-6)")
     check(err <= 1e-6, f"F.conv1d disagrees with K9's twin: {err}")
     ms = cuda_ms(conv)
-    dev_ms, _ = device_ms(conv)
+    dev_ms, _ = device_ms(conv, "F.conv1d for K9")
     print(f"F.conv1d [{x.shape[0]}, {x.shape[1]}]: {ms:.4f} ms per call, "
           f"device {dev_ms:.4f} ms {tag}")
     return ms
 
 
-def k9_phase(dev, tag):
+def truepeak_ops(C: int, N: int) -> float:
+    """The fewest fp32 operations of K9's function on [C, N]: per sample
+    and channel, a multiply per nonzero tap of each phase whose taps are
+    not another phase's reversed (a reversed phase's products are those
+    of its mirror at other samples), an add per nonzero tap of each
+    phase but its first, and a maximum per phase. From the tap table:
+    23 multiplies, 42 adds, 4 maxima."""
     from iamf_tpu_torch.dsp import limiter
+
+    h = limiter.truepeak_filters()
+    nz = (h != 0).sum(axis=1)
+    mirrored = [any(np.array_equal(h[p].view(np.uint32),
+                                   h[q, ::-1].view(np.uint32))
+                    for q in range(p)) for p in range(len(h))]
+    muls = sum(int(n) for n, m in zip(nz, mirrored) if not m)
+    adds = int((nz - 1).sum())
+    return float((muls + adds + len(h)) * C * N)
+
+
+def k9_inputs(C, dev):
+    """K9's inputs at [C, 128·960]: a nonzero history and two batches."""
+    from iamf_tpu_torch.dsp import limiter
+
+    rng = np.random.RandomState(C)
+    hist = torch.from_numpy((rng.randn(C, limiter.TP_HIST) * 0.5).astype(
+        np.float32)).to(dev)
+    xs = [torch.from_numpy((rng.randn(C, B_MAIN * FRAME) * 0.3).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    return hist, xs
+
+
+def k9_phase(dev, tag, lib):
+    from iamf_tpu_torch.dsp import limiter
+
+    counts = sass_counts(lib, "k9_truepeak", ("LDL", "STL", "FMUL", "FADD",
+                                              "FFMA"))
+    print(f"K9 kernel SASS: {counts}")
+    check(not (counts["LDL"] or counts["STL"] or counts["FFMA"]),
+          f"K9 spills to local memory or fuses a multiply-add: {counts}")
 
     row = dict(name="k9_truepeak", max_abs_err=0.0)
     N = B_MAIN * FRAME
     for C in (LANES, 2):
-        rng = np.random.RandomState(C)
-        hist = torch.from_numpy((rng.randn(C, limiter.TP_HIST) * 0.5).astype(
-            np.float32)).to(dev)
+        hist, xs = k9_inputs(C, dev)
         h_d = h_p = hist
-        for call in range(2):  # the history chained from one batch on
-            x = torch.from_numpy((rng.randn(C, N) * 0.3).astype(
-                np.float32)).to(dev)
+        for call, x in enumerate(xs):  # the history chained from batch 1
             pk, h_d = limiter.truepeak_cuda(x, h_d)
             pk_p, h_p = limiter.truepeak_plain(x, h_p)
             torch.cuda.synchronize()
@@ -977,11 +1123,19 @@ def k9_phase(dev, tag):
             tag, f"K9 [C={C}, N={N}]",
             lambda: limiter.truepeak_cuda(x, h0),
             lambda: limiter.truepeak_plain(x, h0))
+        n_dev = device_launches(lambda: limiter.truepeak_cuda(x, h0))
+        print(f"K9 [C={C}, N={N}]: {n_dev} device launch a call")
+        check(n_dev == 1, f"K9 made {n_dev} device launches a call")
         if C == LANES:
-            ops = 2 * limiter.TP_PHASES * limiter.TP_TAPS * C * N
-            b = bound(nbytes(x, h0, pk, h_d), ops, FP32_FLOPS)
+            ops = truepeak_ops(C, N)
+            moved = nbytes(x, h0, pk, h_d)
+            dense = 2 * limiter.TP_PHASES * limiter.TP_TAPS * C * N / 1e6
+            b = bound(moved, ops, FP32_FLOPS)
             print(f"K9 bound [C={C}, N={N}] {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']}; {ops / 1e6:.1f} M flops)")
+                  f"({b['bound_by']}; {moved / 1e6:.2f} MB, "
+                  f"{ops / 1e6:.1f} M flops "
+                  f"of distinct products, sums and maxima; the dense FIR's "
+                  f"{dense:.1f} M)")
             lib_ms = k9_library(tag, x, h0, limiter.truepeak_plain(x, h0)[0])
             row.update(ms=ms, plain_ms=plain, library_ms=lib_ms, **b)
     return row
@@ -1179,7 +1333,7 @@ def main() -> int:
     rows += [k8_phase(dev, tag), k10_k3_phase(dev, tag)]
     launches[K8.symbol] = binaural_phase(dev, tag, kernels)[K8.symbol]
     launches[K10.symbol] = resample_phase(dev, tag, kernels)[K10.symbol]
-    rows += [k7_phase(dev, tag, path), k9_phase(dev, tag)]
+    rows += [k7_phase(dev, tag, path), k9_phase(dev, tag, path)]
     launches[K7.symbol] = aac_phase(dev, tag, kernels,
                                     (K1, K2, K8, K9, K10))[K7.symbol]
     launches[K9.symbol] = truepeak_phase(dev, tag, kernels,

@@ -16,26 +16,27 @@ layers and exports post-TNS spectra [B, L, 1024] with each frame's
 - overlap-add across frames: out[b] = first[b] + second[b-1], with an
   [L, 1024] carry across batches; then clip, rint, / 32768.
 
-CUDA tensors run the hand-written kernel K7 (csrc/aac_synth.cu: a
-split-TF32 tensor-core product for the long rows, the short rows on the
-CUDA cores); CPU tensors run the plain twin, which follows the reference:
-both paths for every row, selected by sequence, matmuls in fp32.
+CUDA tensors run the hand-written kernel K7 (csrc/aac_synth.cu: one
+launch, FFT IMDCTs with the twiddles of ``k7_twiddles``, windows and both
+overlaps within each warp); CPU tensors run the plain twin, which follows
+the reference: both paths for every row, selected by sequence, matmuls in
+fp32.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from ...kernels.build import I, Kernel, P
-from ..opus.imdct import k_order, split_tf32
+from ...kernels.build import I, Kernel, P, load
 
 FRAME = 1024
 ONLY_LONG, LONG_START, EIGHT_SHORT, LONG_STOP = 0, 1, 2, 3
 
-K7 = Kernel("iamf_k7_aac_synth", [P, P, P, I, I] + [P] * 6 + [P] * 6)
+K7 = Kernel("iamf_k7_aac_synth", [P, P, P, I, I, I] + [P] * 6)
 
 
 def _kbd_half(n: int, alpha: float) -> np.ndarray:
@@ -82,33 +83,50 @@ def tables() -> dict:
         b_short=_imdct_basis(256)).items()}
 
 
-# the 1024 distinct outputs of the 2048-point IMDCT, in K7's product order:
-# t[1023 - n] = -t[n] (n < 512) and t[3071 - n] = t[n] (1536 <= n < 2048)
-DISTINCT = np.concatenate([np.arange(512), np.arange(1024, 1536)])
+# K7's twiddle table (k7_twiddles), float32 (re, im) rows from these
+# offsets: the long (N = 2048) and short (N = 256) IMDCTs' pre- and
+# post-twiddles, then the radix-8 passes' W_64^(r k) and W_512^(r k)
+TW_PRE_L, TW_POST_L, TW_PRE_S, TW_POST_S, TW_64, TW_512, TW_ROWS = (
+    0, 512, 1024, 1088, 1152, 1216, 1728)
 
 
-def product_mat() -> np.ndarray:
-    """K7's product matrix, float32 [1024 outputs, 1024 lines]: the long
-    basis's DISTINCT columns, K-major as TF32 wgmma takes its B operand,
-    lines in ``k_order(1024)``."""
-    b = tables()["b_long"]  # [1024 lines, 2048 outputs]
-    return np.ascontiguousarray(b[:, DISTINCT].T[:, k_order(FRAME)])
+@functools.lru_cache(maxsize=None)
+def k7_twiddles() -> np.ndarray:
+    """K7's twiddles, float32 [TW_ROWS, 2], made in float64. An N-point
+    IMDCT (N/2 lines X) is an N/4-point complex inverse FFT (exponent
+    +2 pi i) of v[k] = (X[N/2 - 1 - 2k] + i X[2k]) pre[k], then
+    W[c] = V[c] post[c]: pre[k] = (2/N) e^(i a_k), post[c] = e^(i a_c),
+    a_k = 2 pi (k + 1/8) / N, which folds in the scale 2/N and the phase
+    n0 = (N/2 + 1)/2. W[c] gives the outputs t[N/4 + 2c] = Re W[c] and
+    t[3N/4 - 1 - 2c] = -Im W[c]; the IMDCT's symmetries give the rest
+    (tests/k7_model.py). The radix-8 passes take W_64^(r k) at
+    TW_64 + 8 k + r (k < 8) and W_512^(r k) at TW_512 + 8 k + r (k < 64)."""
+    def prepost(n):
+        a = 2.0 * np.pi * (np.arange(n // 4) + 0.125) / n
+        return (2.0 / n) * np.exp(1j * a), np.exp(1j * a)
+
+    def radix8(n):
+        k, r = np.meshgrid(np.arange(n // 8), np.arange(8), indexing="ij")
+        return np.exp(2j * np.pi * (r * k).ravel() / n)
+
+    w = np.concatenate([*prepost(2048), *prepost(256), radix8(64),
+                        radix8(512)])
+    assert len(w) == TW_ROWS
+    return np.stack([w.real, w.imag], -1).astype(np.float32)
 
 
 class Tables(torch.nn.Module):
     """The constants as buffers, moved with ``.to(device)``: the windows
-    and short basis both routes read (wl, wr, short_half, b_short) and K7's
-    split product matrix (w_hi, w_lo). The twin's long basis is made at
-    its first use (``b_long``), so a decoder on the card never holds it."""
+    both routes read (wl, wr, short_half), the twin's short basis (b_short)
+    and K7's twiddles (tw). The twin's long basis is made at its first use
+    (``b_long``), so a decoder on the card never holds it."""
 
     def __init__(self):
         super().__init__()
         for name, a in tables().items():
             if name != "b_long":
                 self.register_buffer(name, torch.from_numpy(a.copy()))
-        hi, lo = split_tf32(product_mat())
-        self.register_buffer("w_hi", torch.from_numpy(hi))
-        self.register_buffer("w_lo", torch.from_numpy(lo))
+        self.register_buffer("tw", torch.from_numpy(k7_twiddles().copy()))
         self._b_long = None
 
     def b_long(self) -> torch.Tensor:
@@ -157,9 +175,40 @@ def synthesize_plain(tabs: Tables, spec, meta, carry):
     return s16 * (1.0 / 32768.0), second[-1]
 
 
-def synthesize_cuda(tabs: Tables, spec, meta, carry):
+def k7_run(B: int, L: int, fill: int) -> int:
+    """Frames a K7 warp takes (and one before them): the fewest that keep
+    the L * ceil(B / run) warps within ``fill``, the warps the card holds
+    at once (``k7_fill``), so a large batch recomputes few frames and a
+    small one still spreads over the card."""
+    per_lane = fill // L
+    return -(-B // per_lane) if per_lane else B
+
+
+@functools.cache
+def _fill(index: int) -> int:
+    fn = load().iamf_k7_fill
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    n = fn(index)
+    if n < 1:
+        raise RuntimeError(f"iamf_k7_fill: no occupancy for cuda:{index}")
+    return n
+
+
+def k7_fill(dev: torch.device) -> int:
+    """Warps of K7 that the card holds at once: its SMs x the CTAs an SM
+    holds of the built kernel x warps a CTA (csrc/aac_synth.cu
+    iamf_k7_fill)."""
+    if dev.type != "cuda":
+        raise ValueError(f"K7 runs on a CUDA device, got {dev}")
+    return _fill(dev.index if dev.index is not None
+                 else torch.cuda.current_device())
+
+
+def synthesize_cuda(tabs: Tables, spec, meta, carry, run=None):
     """K7 on the card: spec [B, L, 1024] float32, meta [B, L, 3] int32,
-    carry [L, 1024] -> (pcm [B, L, 1024], carry')."""
+    carry [L, 1024] -> (pcm [B, L, 1024], carry'). ``run`` is a hook for
+    tests and measurement (frames a warp takes); the decode path leaves it
+    None, which takes ``k7_run`` over ``k7_fill``."""
     B, L, n = spec.shape
     if (n != FRAME or tuple(meta.shape) != (B, L, 3)
             or tuple(carry.shape) != (L, FRAME)):
@@ -171,19 +220,14 @@ def synthesize_cuda(tabs: Tables, spec, meta, carry):
             or meta.dtype != torch.int32):
         raise TypeError("K7 takes float32 spectra and carry, int32 meta")
     spec, meta = spec.contiguous(), meta.contiguous()
+    if spec.data_ptr() % 8:  # K7 reads the spectra as float2
+        spec = spec.clone()
     carry = carry.contiguous()
-    dev = spec.device
-    R = B * L
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.empty((B, L, FRAME), **f32)
-    carry_out = torch.empty((L, FRAME), **f32)
-    z = torch.empty((R, FRAME), **f32)
-    frames = torch.empty((R, 2 * FRAME), **f32)
-    lists = torch.empty((R,), dtype=torch.int32, device=dev)
-    counts = torch.empty((1,), dtype=torch.int32, device=dev)
-    K7(spec, meta, carry, B, L, tabs.w_hi, tabs.w_lo, tabs.wl, tabs.wr,
-       tabs.short_half, tabs.b_short, out, carry_out, z, frames, lists,
-       counts)
+    out = torch.empty((B, L, FRAME), dtype=torch.float32, device=spec.device)
+    carry_out = torch.empty_like(carry)
+    run = run or k7_run(B, L, k7_fill(spec.device))
+    K7(spec, meta, carry, B, L, run, tabs.tw, tabs.wl, tabs.wr,
+       tabs.short_half, out, carry_out)
     return out, carry_out
 
 

@@ -1,6 +1,6 @@
 // Device helpers shared by the kernels that use Hopper's asynchronous
 // copies and tensor cores: mbarriers, TMA (tensor maps and 1D bulk
-// copies), and the split-TF32 wgmma product step of K1 and K7.
+// copies), and the split-TF32 wgmma product step of K1.
 #pragma once
 
 #include <cuda.h>

@@ -10,28 +10,54 @@
 // 11 samples of hist ++ x. The peaks replace K3's sample peaks max_c |x|
 // (csrc/limiter.cu seq_peaks takes them as a pointer).
 //
-// Design: one CTA of 256 threads per tile of TS = 1024 samples (K3's tile),
-// 4 samples a thread, all channels, the maximum in registers. The CTA
-// stages one channel's tile and its 11-sample halo in shared memory at a
-// time; the 48 taps are in __constant__ memory (the table below; a CPU
-// test holds it to truepeak_filters). Each phase sums its taps in the
-// plain twin's order (i = 0..11, each product and sum rounded to nearest,
-// no FMA contraction), so the peaks equal the twin's bit for bit.
-//
 // What bounds it: at C = 12, N = 122,880 the FIR is 2 x 48 x C x N = 141.6
-// MFLOP (2.1 us at 67 TFLOP/s) against 5.9 MB of input (1.8 us at
-// 3.35 TB/s): operations, by a little. 120 CTAs fill most of the card's 132
-// SMs once.
+// MFLOP (2.1 us at 67 TFLOP/s, which counts an FMA as two) against 5.9 MB
+// of input (1.8 us at 3.35 TB/s). The peaks must equal the twin's bit for
+// bit, so each product and each sum is rounded on its own (no FMA): at
+// most 88 multiplies and adds and 4 maxima a sample and channel, up to
+// 136 M instructions, 4.1 us at the card's 128 fp32 instructions a clock
+// an SM at 1.98 GHz. The issue rate bounds it, and the design keeps the
+// fp32 pipes fed and the loads under the arithmetic:
+//   - a warp takes a tile of every channel: its lanes form G channel
+//     groups (4; 2 for 2 or 3 channels, 1 for one, so no lane idles), a
+//     lane on SPT = 4 consecutive samples of every G-th channel: 32
+//     samples a warp at C >= 4 (3840 tiles at N = 122,880, all resident
+//     at once), WPC = 2 warps a CTA;
+//   - a lane loads the 16 samples its window needs (x[t - 12 .. t + 4),
+//     float4 loads where the row is aligned; neighbours' halos meet in L1)
+//     straight into registers, the next channel's while it computes this
+//     one's: no shared memory and no barrier, so every warp runs on its
+//     own and the loads of some overlap the arithmetic of others;
+//   - each phase sums its taps in the plain twin's order (i = 0..11, each
+//     product and sum rounded to nearest); the two taps that are -0
+//     (h[0][0], h[3][11]) are left out, which changes no sum but the sign
+//     of a zero, and |.| takes that away; phases 2 and 3 are phases 1 and 0
+//     mirrored (h[3 - p][11 - i], bit for bit: a CPU test holds the table
+//     to both), so a product serves both phases of a pair where the lane's
+//     samples share it (42 multiplies a sample and channel instead of 46;
+//     38 with 8 samples a lane, which measured slower, perf/k7_k9.py);
+//   - the maxima over the channel groups meet by warp shuffles (exact).
+// The taps are in __constant__ memory (the table below; a CPU test holds
+// it to truepeak_filters).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int TS = 1024;       // samples per CTA (K3's tile)
-constexpr int THREADS = 256;
-constexpr int SPT = TS / THREADS;  // samples per thread
+constexpr int SPT = 4;            // consecutive samples per lane
+constexpr int WPC = 2;            // warps a CTA, each on its own tile
+constexpr int KB = 2;             // samples whose sums advance together
 constexpr int PHASES = 4, TAPS = 12, HIST = TAPS - 1;
+constexpr int OFF = 12;           // the window starts 12 samples back
+constexpr int WIN = SPT + OFF;    // a lane's window, float4-aligned
+static_assert(SPT % 4 == 0 && SPT % KB == 0, "tiling");
+
+// channel groups in a warp: 4, or fewer for fewer channels, so that no
+// lane idles; a group's 32 / G lanes take SPT samples each
+__host__ __device__ constexpr int groups(int C) {
+  return C >= 4 ? 4 : C >= 2 ? 2 : 1;
+}
 
 // truepeak_filters(): phase p holds taps h[4 i + p] of the prototype,
 // applied to x[t - i]; each phase sums to 1
@@ -48,45 +74,104 @@ __device__ __forceinline__ float joined(const float* x, const float* hist,
   return j < HIST ? hist[c * HIST + j] : x[(size_t)c * N + (j - HIST)];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// phase p's tap i, from the table of phases 0 and 1: h[p][i] =
+// h[3 - p][11 - i] bit for bit
+__device__ __forceinline__ float tap(int p, int i) {
+  return p < 2 ? H[p][i] : H[3 - p][TAPS - 1 - i];
+}
+
+// mx[k0 + kk] = max(mx[k0 + kk], |sum_i h[p][i] x[t + k0 + kk - i]|) over
+// the phases p, for the NB samples kk < NB: their 4 NB sums advance tap by
+// tap side by side (independent chains), each in the twin's order;
+// w[OFF + k - i] = x[t + k - i]
+template <int NB>
+__device__ __forceinline__ void meter(const float (&w)[WIN], int k0,
+                                      float (&mx)[SPT]) {
+  float acc[NB][PHASES];
+#pragma unroll
+  for (int kk = 0; kk < NB; ++kk) {
+    const int c = OFF + k0 + kk;
+    acc[kk][0] = __fmul_rn(tap(0, 1), w[c - 1]);  // h[0][0] = -0
+#pragma unroll
+    for (int p = 1; p < PHASES; ++p) acc[kk][p] = __fmul_rn(tap(p, 0), w[c]);
+  }
+#pragma unroll
+  for (int i = 1; i < TAPS; ++i)
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk)
+#pragma unroll
+      for (int p = 0; p < PHASES; ++p) {
+        if ((p == 0 && i == 1) || (p == 3 && i == TAPS - 1))
+          continue;  // phase 0's first product; h[3][11] = -0
+        acc[kk][p] = __fadd_rn(
+            acc[kk][p], __fmul_rn(tap(p, i), w[OFF + k0 + kk - i]));
+      }
+#pragma unroll
+  for (int kk = 0; kk < NB; ++kk)
+#pragma unroll
+    for (int p = 0; p < PHASES; ++p)
+      mx[k0 + kk] = fmaxf(mx[k0 + kk], fabsf(acc[kk][p]));
+}
+
+// w[m] = x[c, t - OFF + m] (hist for t - OFF + m < 0, 0 past N)
+__device__ __forceinline__ void load_window(const float* __restrict__ x,
+                                            const float* __restrict__ hist,
+                                            int N, int c, int t,
+                                            float (&w)[WIN]) {
+  if ((N & 3) == 0 && t >= OFF && t + SPT <= N) {
+    const float4* src =
+        reinterpret_cast<const float4*>(x + (size_t)c * N + (t - OFF));
+#pragma unroll
+    for (int m = 0; m < WIN / 4; ++m) {
+      const float4 q = __ldg(src + m);
+      w[4 * m] = q.x;
+      w[4 * m + 1] = q.y;
+      w[4 * m + 2] = q.z;
+      w[4 * m + 3] = q.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < WIN; ++m) {
+    const long j = (long)t - OFF + m + HIST;  // in hist ++ x
+    w[m] = j >= 0 && j < (long)N + HIST ? joined(x, hist, N, c, j) : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(32 * WPC)
 k9_truepeak(const float* __restrict__ x, const float* __restrict__ hist,
             int C, int N, float* __restrict__ peaks,
             float* __restrict__ hist_out) {
-  __shared__ float xs[TS + HIST];  // hist ++ x at [t0, t0 + TS + HIST)
-  const int t0 = blockIdx.x * TS, tid = threadIdx.x;
+  const int G = groups(C), tpg = 32 / G, ts = SPT * tpg;  // a warp's tile
+  const int lane = threadIdx.x & 31, g = lane / tpg;
+  const int tile = blockIdx.x * WPC + (threadIdx.x >> 5);
+  if (tile * ts >= N) return;
+  const int t = tile * ts + SPT * (lane % tpg);  // the lane's first sample
   float mx[SPT];
 #pragma unroll
-  for (int s = 0; s < SPT; ++s) mx[s] = 0.f;
-  for (int c = 0; c < C; ++c) {
-    for (int i = tid; i < TS + HIST; i += THREADS) {
-      const long j = (long)t0 + i;
-      xs[i] = j < (long)N + HIST ? joined(x, hist, N, c, j) : 0.f;
-    }
-    __syncthreads();
+  for (int k = 0; k < SPT; ++k) mx[k] = 0.f;
+  float nxt[WIN];
+  load_window(x, hist, N, g, t, nxt);
+  for (int c = g; c < C; c += G) {
+    float w[WIN];
 #pragma unroll
-    for (int s = 0; s < SPT; ++s) {
-      const int t = tid + s * THREADS;
-      float w[TAPS];  // w[i] = x[c, t0 + t - i]
+    for (int m = 0; m < WIN; ++m) w[m] = nxt[m];
+    if (c + G < C) load_window(x, hist, N, c + G, t, nxt);
 #pragma unroll
-      for (int i = 0; i < TAPS; ++i) w[i] = xs[t + HIST - i];
-#pragma unroll
-      for (int p = 0; p < PHASES; ++p) {
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < TAPS; ++i)
-          acc = __fadd_rn(acc, __fmul_rn(H[p][i], w[i]));
-        mx[s] = fmaxf(mx[s], fabsf(acc));
-      }
-    }
-    __syncthreads();
+    for (int k0 = 0; k0 < SPT; k0 += KB) meter<KB>(w, k0, mx);
   }
 #pragma unroll
-  for (int s = 0; s < SPT; ++s) {
-    const int t = t0 + tid + s * THREADS;
-    if (t < N) peaks[t] = mx[s];
+  for (int k = 0; k < SPT; ++k)
+#pragma unroll
+    for (int d = tpg; d < 32; d *= 2)
+      mx[k] = fmaxf(mx[k], __shfl_xor_sync(0xffffffffu, mx[k], d));
+  if (g == 0) {
+#pragma unroll
+    for (int k = 0; k < SPT; ++k)
+      if (t + k < N) peaks[t + k] = mx[k];
   }
-  if (blockIdx.x == 0)
-    for (int i = tid; i < C * HIST; i += THREADS) {
+  if (tile == 0)
+    for (int i = lane; i < C * HIST; i += 32) {
       const int c = i / HIST, k = i - c * HIST;
       hist_out[i] = joined(x, hist, N, c, (long)N + k);
     }
@@ -99,7 +184,9 @@ k9_truepeak(const float* __restrict__ x, const float* __restrict__ hist,
 extern "C" int iamf_k9_truepeak(const void* x, const void* hist, int C, int N,
                                 void* peaks, void* hist_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  k9_truepeak<<<(N + TS - 1) / TS, THREADS, 0, s>>>(
+  if (C < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const int per_cta = WPC * 32 / groups(C) * SPT;
+  k9_truepeak<<<(N + per_cta - 1) / per_cta, 32 * WPC, 0, s>>>(
       (const float*)x, (const float*)hist, C, N, (float*)peaks,
       (float*)hist_out);
   return (int)cudaGetLastError();

@@ -139,6 +139,8 @@ def truepeak_cuda(x, hist):
                          f"[C, {TP_HIST}]; got {x.dtype} {list(x.shape)}, "
                          f"{hist.dtype} {list(hist.shape)}")
     x, hist = x.contiguous(), hist.contiguous()
+    if x.data_ptr() % 16:  # K9 stages aligned rows with float4 loads
+        x = x.clone()
     peaks = torch.empty((T,), dtype=torch.float32, device=x.device)
     hist_out = torch.empty((C, TP_HIST), dtype=torch.float32,
                            device=x.device)

@@ -30,17 +30,13 @@ Builds go to perf/build/ (ignored by git). Needs a CUDA device and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import os
-import pathlib
 import re
 import shutil
 import subprocess
 import sys
 
-HERE = pathlib.Path(__file__).resolve().parent
-ROOT = HERE.parent
-BUILD = HERE / "build"
+from trees import BUILD, HERE, ROOT, label, smoke, use_source
+
 B, L, F = 128, 12, 960
 
 
@@ -55,24 +51,6 @@ def micro() -> None:
                     "--fmad=false", "-o", str(exe),
                     str(HERE / "k2_microbench.cu")], check=True)
     subprocess.run([str(exe)], check=True)
-
-
-def use_source(build, synth, name: str, text: str) -> None:
-    """Build `text` (a version of comb_deemph.cu) with the other kernel
-    sources into its own library and make K2 launch from it."""
-    d = BUILD / name
-    d.mkdir(parents=True, exist_ok=True)
-    for p in (ROOT / "iamf_tpu_torch" / "csrc").glob("*.cu"):
-        if p.name != "comb_deemph.cu":
-            shutil.copy(p, d)
-    (d / "comb_deemph.cu").write_text(text)
-    build.CSRC, build.BUILD = d, d
-    build._lib = None
-    lib = ctypes.CDLL(str(build.build()[0]))
-    lib.iamf_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.iamf_cuda_error_string.restype = ctypes.c_char_p
-    build._lib = lib
-    synth.K2._fn = None
 
 
 def stamps(cs, build, synth) -> None:
@@ -92,7 +70,7 @@ def stamps(cs, build, synth) -> None:
              "    reinterpret_cast<unsigned*>(zl)[i] = tim[i];\n")]:
         assert text.count(anchor) == 1, anchor
         text = text.replace(anchor, anchor + add)
-    use_source(build, synth, "stamps", text)
+    use_source(build, synth.K2, "stamps", "comb_deemph.cu", text)
     dev = torch.device("cuda")
     bufs, y, hist, demem, window = cs.k2_inputs(dev)
     scratch = torch.empty(L * B * F + L, device=dev)
@@ -147,7 +125,8 @@ def times(cs, build, synth, variants, label) -> None:
             nt, g = v.split(":")
             text = src.replace("constexpr int NT = 512;", f"constexpr int NT = {nt};")
             text = text.replace("constexpr int G = 2;", f"constexpr int G = {g};")
-            use_source(build, synth, f"nt{nt}_g{g}", text)
+            use_source(build, synth.K2, f"nt{nt}_g{g}", "comb_deemph.cu",
+                       text)
             label = f"NT {nt}, G {g}"
         for name, buf in bufs.items():
             def k2():
@@ -157,7 +136,7 @@ def times(cs, build, synth, variants, label) -> None:
             same = all(torch.equal(a, b)
                        for a, b in zip(out, first.setdefault(name, out)))
             ms = cs.cuda_ms(k2)
-            _, per = cs.device_ms(k2)
+            _, per = cs.device_ms(k2, f"{label} {name}")
             kern = ", ".join(f"{m.group(0)} {t:.4f}" for k, t in per.items()
                              if (m := re.search(r"\w*(comb|deemph)\w*", k)))
             print(f"{label} {name}: K2 {ms:.4f} ms per call; device ms "
@@ -173,11 +152,7 @@ def main() -> int:
     if a.part == "micro":
         micro()
         return 0
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs  # noqa: E402  (puts ROOT first on sys.path)
-
-    if a.tree:
-        sys.path.insert(0, os.path.abspath(a.tree))
+    cs = smoke(a.tree)
     from iamf_tpu_torch.codecs.opus import synth  # noqa: E402
     from iamf_tpu_torch.kernels import build  # noqa: E402
 
@@ -185,7 +160,7 @@ def main() -> int:
         stamps(cs, build, synth)
     else:
         times(cs, build, synth, a.variants and a.variants.split(","),
-              os.path.basename(os.path.abspath(a.tree or ROOT)))
+              label(a.tree))
     return 0
 
 

@@ -33,21 +33,17 @@ nvcc. Builds go to each tree's own ignored build directory.
 from __future__ import annotations
 
 import argparse
-import os
-import pathlib
 import sys
 
-HERE = pathlib.Path(__file__).resolve().parent
-ROOT = HERE.parent
-BUILD = HERE / "build"
+from trees import ROOT, compare, label, save, smoke, use_source
 
 
-def times(cs, tree: str, save: bool) -> None:
+def times(cs, tree: str, keep: bool) -> None:
     import torch
     from iamf_tpu_torch.dsp import binaural, resample
 
     dev = torch.device("cuda")
-    label = os.path.basename(os.path.abspath(tree))
+    name = label(tree)
     card = cs.card_line()
     out = {}
     for C in (12, 10):
@@ -58,8 +54,8 @@ def times(cs, tree: str, save: bool) -> None:
 
         out[f"k8_c{C}"] = [t.cpu() for t in k8()]
         ms = cs.cuda_ms(k8)
-        dev_ms, _ = cs.device_ms(k8)
-        print(f"{label} K8 [C={C}, B={cs.B_MAIN}]: {ms:.4f} ms per call, "
+        dev_ms, _ = cs.device_ms(k8, f"{name} K8 [C={C}]")
+        print(f"{name} K8 [C={C}, B={cs.B_MAIN}]: {ms:.4f} ms per call, "
               f"device {dev_ms:.4f} ms [{card}]")
     plan, x = cs.k10_inputs(44100, 30.0, dev)
 
@@ -69,25 +65,12 @@ def times(cs, tree: str, save: bool) -> None:
     y = k10()
     out["k10"] = y.cpu()
     ms = cs.cuda_ms(k10)
-    dev_ms, _ = cs.device_ms(k10)
-    print(f"{label} K10 [44100, 30 s x {x.shape[0]} ch]: {ms:.4f} ms per "
+    dev_ms, _ = cs.device_ms(k10, f"{name} K10")
+    print(f"{name} K10 [44100, 30 s x {x.shape[0]} ch]: {ms:.4f} ms per "
           f"call, device {dev_ms:.4f} ms [{card}]")
-    BUILD.mkdir(exist_ok=True)
-    torch.save(out, BUILD / f"k8_k10_{label}.pt")
-    if save:
+    save(out, "k8_k10", tree)
+    if keep:
         torch.save(out["k10"], cs.K10_PARENT)
-
-
-def compare(a: str, b: str) -> None:
-    import torch
-
-    oa, ob = (torch.load(BUILD / f"k8_k10_{n}.pt") for n in (a, b))
-    for k in oa:
-        ta = oa[k] if isinstance(oa[k], list) else [oa[k]]
-        tb = ob[k] if isinstance(ob[k], list) else [ob[k]]
-        same = all(torch.equal(p, q) for p, q in zip(ta, tb))
-        diff = max(float((p - q).abs().max()) for p, q in zip(ta, tb))
-        print(f"{k}: {a} vs {b}: equal {same}, max|diff| {diff:.3e}")
 
 
 # K10 with a part of its work cut out: (name, [(text, replacement)])
@@ -112,29 +95,6 @@ def k10_shape(src: str, ct: int, kb: int) -> str:
     return src
 
 
-def use_source(build, kernel, name: str, text: str):
-    """Build `text` (a version of resample.cu) with the other kernel
-    sources into its own library and make K10 launch from it; returns
-    the library's path."""
-    import ctypes
-    import shutil
-
-    d = BUILD / name.replace(" ", "_")
-    d.mkdir(parents=True, exist_ok=True)
-    for p in (ROOT / "iamf_tpu_torch" / "csrc").glob("*.cu"):
-        shutil.copy(p, d)
-    (d / "resample.cu").write_text(text)
-    build.CSRC, build.BUILD = d, d
-    build._lib = None
-    path = build.build()[0]
-    lib = ctypes.CDLL(str(path))
-    lib.iamf_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.iamf_cuda_error_string.restype = ctypes.c_char_p
-    build._lib = lib
-    kernel._fn = None
-    return path
-
-
 def parts(cs) -> None:
     import torch
     from iamf_tpu_torch.dsp import resample
@@ -157,7 +117,7 @@ def parts(cs) -> None:
     versions += [(f"CT {ct}, {kb} KB a CTA", k10_shape(src, ct, kb), True)
                  for ct, kb in K10_SHAPES]
     for name, text, whole in versions:
-        use_source(build, resample.K10, name, text)
+        use_source(build, resample.K10, name, "resample.cu", text)
 
         def k10():
             return resample.resample_cuda(plan, x)
@@ -167,7 +127,7 @@ def parts(cs) -> None:
             y0 = y
         same = f", equal to the kernel's: {torch.equal(y, y0)}" if whole \
             else ""
-        dev_ms, _ = cs.device_ms(k10)
+        dev_ms, _ = cs.device_ms(k10, f"K10 {name}")
         print(f"K10 [44100, 30 s x 12 ch], {name}: device {dev_ms:.4f} ms"
               f"{same} [{card}]")
 
@@ -180,12 +140,9 @@ def main() -> int:
     ap.add_argument("--save", action="store_true")
     a = ap.parse_args()
     if a.part == "compare":
-        compare(*a.labels)
+        compare("k8_k10", *a.labels)
         return 0
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs  # noqa: E402  (puts ROOT first on sys.path)
-
-    sys.path.insert(0, os.path.abspath(a.tree))
+    cs = smoke(a.tree)
     if a.part == "parts":
         parts(cs)
     else:

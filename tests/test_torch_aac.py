@@ -6,7 +6,7 @@ and whole AAC and FLAC decodes through both BatchedStreamDecoders.
 Bounds: PCM within 1 s16 LSB (the repo's batched-vs-serial bar); before
 rounding, the windowed frames within 2^-17 of their largest magnitude (the
 same fp32 products summed in another order: ~2e-7 relative measured);
-K7's numpy model (tests/k7_model.py, its products in float64) within 1e-3
+K7's numpy model (tests/k7_model.py, its FFTs in float64) within 1e-3
 at s16 scale of the twin's frames.
 """
 
@@ -68,10 +68,11 @@ def test_k7_twin_matches_jax(case):
 
 
 def test_k7_model_matches_twin():
-    """K7's plan (tests/k7_model.py: the long rows unfolded from 1024
-    distinct product columns, the short rows' windows and overlaps indexed
-    as the kernel indexes them) against the twin, every case in one batch
-    of 8 frames x 6 lanes, with a live carry."""
+    """K7's plan (tests/k7_model.py: FFT IMDCTs with the kernel's index
+    maps, each bin's samples unfolded to the positions a lane owns, the
+    short rows' windows and overlaps indexed as the kernel indexes them)
+    against the twin, every case in one batch of 8 frames x 6 lanes, with
+    a live carry."""
     B, L = 8, 6
     rng = np.random.RandomState(7)
     meta = np.array([CASES[(3 * r) % 16] for r in range(B * L)],
@@ -91,19 +92,53 @@ def test_k7_model_matches_twin():
     assert np.abs(c_m - c.numpy()).max() < 1e-3
 
 
-def test_k7_product_matrix():
-    """K7's product matrix, back in line order, gives the 1024 distinct
-    outputs, and they unfold to the whole 2048-point IMDCT."""
-    b = synth.tables()["b_long"].astype(np.float64)
-    x = np.random.RandomState(1).randn(synth.FRAME)
-    t = x @ b
-    inv = np.argsort(synth.k_order(synth.FRAME))
-    z = synth.product_mat()[:, inv].astype(np.float64) @ x
-    assert np.abs(z - t[synth.DISTINCT]).max() < 1e-5
-    n = np.arange(512, 1024)
-    assert np.abs(t[n] + t[1023 - n]).max() < 1e-9
-    n = np.arange(1536, 2048)
-    assert np.abs(t[n] - t[3071 - n]).max() < 1e-9
+@pytest.mark.parametrize("n_out,seed", [(2048, 1), (2048, 2), (256, 1),
+                                        (256, 2)])
+def test_k7_fft_imdct_matches_basis(n_out, seed):
+    """K7's IMDCT (tests/k7_model.py: an n/4-point inverse FFT in radix-8
+    passes with the stored float32 twiddles of synth.k7_twiddles, each
+    bin's two samples unfolded to both halves) against the dense float64
+    product with the reference's basis, long (2048) and short (256), within
+    2^-20 of the largest output (the float32 twiddles: ~5e-8 measured)."""
+    b = synth.tables()["b_long" if n_out == 2048 else "b_short"]
+    x = (np.random.RandomState(seed).randn(3, n_out // 2) * 3000).astype(
+        np.float32)
+    want = x.astype(np.float64) @ b.astype(np.float64)
+    first, second = k7_model.halves(x, n_out)
+    got = np.concatenate([first, second], axis=-1)
+    assert np.abs(got - want).max() <= np.abs(want).max() * 2.0 ** -20
+
+
+@pytest.mark.parametrize("B,run,calls", [(8, 3, 1), (1, 1, 3)])
+def test_k7_model_runs_match_twin(B, run, calls):
+    """K7's cut of a batch into runs that each recompute the frame before
+    them: B = 8 in runs of 3 (the last run short), and B = 1 over three
+    calls with the carry chained; every case of a row, L = 5."""
+    L = 5
+    rng = np.random.RandomState(B * 10 + run)
+    tabs = synth.Tables()
+    carry_m = (rng.randn(L, synth.FRAME) * 3000).astype(np.float32)
+    carry_p = torch.from_numpy(carry_m)
+    for _ in range(calls):
+        meta = np.array([CASES[i] for i in rng.randint(16, size=B * L)],
+                        np.int32).reshape(B, L, 3)
+        spec = _spectra(rng, B, L)
+        pcm_m, carry_m = k7_model.synthesize(spec, meta, carry_m, run)
+        pcm, carry_p = synth.synthesize(tabs, torch.from_numpy(spec),
+                                        torch.from_numpy(meta), carry_p)
+        assert np.abs(pcm_m - pcm.numpy()).max() * 32768 <= 1
+        assert np.abs(carry_m - carry_p.numpy()).max() < 1e-3
+
+
+@pytest.mark.parametrize("B,L", [(128, 12), (8, 12), (1, 1), (3000, 16)])
+def test_k7_run_fills_card(B, L):
+    """k7_run: the fewest frames a warp that keep the grid within the
+    warps the card holds (an H100 SXM's 1056, and smaller cards')."""
+    for fill in (1056, 264, 7):
+        run = synth.k7_run(B, L, fill)
+        warps = L * -(-B // run)
+        assert run >= 1 and (warps <= fill or run >= B)
+        assert run == 1 or L * -(-B // (run - 1)) > fill
 
 
 @pytest.mark.parametrize("seq", [streams.ONLY_LONG, streams.LONG_START,

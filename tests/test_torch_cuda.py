@@ -16,7 +16,8 @@ K8 1e-4 at unit scale against the twin and a float64 direct convolution
 1e-5 against its numpy model (tests/k8_model.py); K10 1e-5 (the same 64-
 to 128-tap fp32 dot products in another order); K7 1 LSB on the PCM and
 0.25 at s16 scale on the unrounded carry against the twin and its numpy
-model (tests/k7_model.py; split-TF32 product as K1's); K9 bit for bit
+model (tests/k7_model.py; fp32 FFT IMDCTs against the twin's fp32 matmul),
+and bit for bit across the ways of cutting a batch into runs; K9 bit for bit
 (each phase sums its taps in the twin's order), and K3 fed by it 0 LSB
 with an equal state; the binaural, 44.1 kHz, AAC and true-peak decodes
 1 LSB against the CPU run.
@@ -385,8 +386,28 @@ def test_k7_matches_plain(dev, B, L, pattern):
         assert np.abs(carry_d.cpu().numpy() - carry_m).max() < 0.25
 
 
+@pytest.mark.parametrize("run", [1, 3, 7])
+def test_k7_runs_agree(dev, run):
+    """K7's output does not depend on how the batch is cut into runs (each
+    run recomputes the frame before it): B = 16, L = 12, every case, bit
+    for bit against run = 2, and against its numpy model."""
+    rng = np.random.RandomState(run)
+    tabs = aac_synth.Tables().to(dev)
+    spec = (rng.randn(16, 12, 1024) * 3000).astype(np.float32)
+    meta = K7_PATTERNS["every-case"](rng, 16, 12)
+    carry = (rng.randn(12, 1024) * 3000).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (spec, meta, carry)]
+    y0, c0 = aac_synth.synthesize_cuda(tabs, *args, run=2)
+    y, c = aac_synth.synthesize_cuda(tabs, *args, run=run)
+    assert torch.equal(y, y0) and torch.equal(c, c0)
+    y_m, c_m = k7_model.synthesize(spec, meta, carry, run)
+    assert np.abs(y.cpu().numpy() - y_m).max() * 32768 <= 1
+    assert np.abs(c.cpu().numpy() - c_m).max() < 0.25
+
+
 @pytest.mark.parametrize("C,N", [(2, 7), (2, 1000), (12, 122880),
-                                 (2, 122880)])
+                                 (2, 122880), (12, 4100), (1, 4097),
+                                 (5, 999)])
 def test_k9_matches_plain(dev, C, N):
     """K9's peaks and history bit for bit against the twin over two
     batches from a nonzero history; then K3 fed by K9 against the twin's

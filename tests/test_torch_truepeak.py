@@ -47,6 +47,15 @@ def test_k9_literal_taps():
         limiter.truepeak_filters().view(np.int32).tolist()
 
 
+def test_k9_taps_mirror_and_zero():
+    """K9 reads phases 2 and 3 as phases 1 and 0 mirrored and leaves out
+    the two -0 taps: both hold bit for bit in truepeak_filters."""
+    h = limiter.truepeak_filters().view(np.uint32)
+    assert np.array_equal(h[2], h[1][::-1])
+    assert np.array_equal(h[3], h[0][::-1])
+    assert h[0, 0] == h[3, 11] == 0x80000000
+
+
 @pytest.mark.parametrize("C,T", [(1, 7), (3, 500), (12, 2048)])
 def test_input_peaks_match_jax(C, T):
     """Two blocks (the second shorter than the history when T = 7), the
