@@ -58,7 +58,35 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
  10. true peak at full width: 30 s of 7.1.4 PCM carrying an fs/4 tone at
      45 degrees -> J at batch_frames=128 with IAMF_TRUEPEAK=1 (set around
      the decoders, then restored), against the CPU run, with K9's
-     launches; the limiter engages where a sample-peak decode's stays idle.
+     launches; the limiter engages where a sample-peak decode's stays idle;
+ 11. the stream axis: K3 (an engaged [4, 2, 122,880] and an idle [4, 12,
+     122,880] batch, four consecutive batches of the binaural and PCM
+     cells, each stream with its decode's state), K9 ([4, 12, 122,880])
+     and K8 ([4, 12, 128·960], one bank) in one launch against four S = 1
+     calls on the card (K3 0 LSB and equal states, K9 bit-equal, K8 equal
+     and within 1e-4 of its twin), with device times beside the S = 1
+     call's and bounds; K1 + K2 and K7 with 4 streams folded into 48 lanes
+     against four 12-lane calls;
+ 12. fleets at full width through MultiStreamServer (batch_frames=128):
+     4 x 30 s of 7.1.4 PCM -> J (seeds 0-3, amp 0.2-0.5; one bucket),
+     4 x 30 s binaural M2B (K8, K3 engaged at S = 4), and 30 s + 22 s of
+     7.1.4 PCM with the Opus sample and its first 12 temporal units (two
+     buckets: K1, K2, K3); each stream against its own decode_all(
+     fetch=False) on the card (<= 1 LSB), each kernel's launches against
+     the buckets' longest members' own decodes, the aggregate realtime
+     factor and a trace;
+ 13. short fleets at batch_frames=16, untimed: 2 AAC-LC 7.1.4 streams (K7
+     at 24 lanes), 3 true-peak streams of unequal length (K9 and K3 at
+     S = 3), a scalable-demix pair; a 44.1 kHz and a reconfigured stream
+     are refused;
+ 14. reconfigure at full width: the Opus sample followed by 30 s of 7.1.4
+     PCM, one stream -> J at batch_frames=128, against the CPU run, its
+     first segment against the golden less its last delay_size samples,
+     one entry under stats["segments"];
+ 15. MP4: the Opus sample muxed into MP4 and fMP4 (tools/mp4builder.py),
+     from_mp4 -> J at batch_frames=8 against the golden, and with
+     start_sec=0.1 against the CPU run of the same file.
+Each phase prints its wall.
 Every kernel's launch count in the kernels line comes from the run of the
 path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
 resampled one, K7 the AAC one, K9 the true-peak one), with the counts set
@@ -86,6 +114,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -509,9 +538,10 @@ def _loud_planar(n_total, nch, burst_lo, burst_hi):
     return (pcm.T / 32768.0).astype(np.float32)
 
 
-def _limiter_batch(dev, stream, kw, index=1):
-    """(cfg, state, x) of the limiter's `index`-th call in a card decode of
-    `stream` at batch_frames=128: a batch of the main path as it is."""
+def _limiter_calls(dev, stream, kw):
+    """(cfg, state, x) of every limiter call in a card decode of `stream` at
+    batch_frames=128: the main path's batches as they are, with the stream
+    axis of one decoder (S = 1)."""
     from iamf_tpu_torch.core import pipeline as ppipe
     from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
 
@@ -529,7 +559,7 @@ def _limiter_batch(dev, stream, kw, index=1):
                              **kw).decode_all()
     finally:
         ppipe.limit_quantize = real
-    return calls[index]
+    return calls
 
 
 def k3_check(label, cfg, state, x, plain_ms=None):
@@ -570,29 +600,30 @@ def k3_phase(dev, tag, lib):
     # a burst across the edge between two [12, N] batches: attack in the
     # first, release (200 ms) running on into the second
     x = torch.from_numpy(_loud_planar(2 * N, LANES, N - 4 * FRAME,
-                                      N + 2 * FRAME)).to(dev)
+                                      N + 2 * FRAME)[None]).to(dev)
     cfg = limiter.LimiterConfig(channels=LANES)
-    st = limiter.init_state(cfg, dev)
-    err, _, st1 = k3_check("[12, N] attack batch", cfg, st, x[:, :N])
+    st = {k: v[None] for k, v in limiter.init_state(cfg, dev).items()}
+    err, _, st1 = k3_check("[12, N] attack batch", cfg, st, x[..., :N])
     err2, _, _ = k3_check("[12, N] release batch", cfg,
-                          {k: v.to(dev) for k, v in st1.items()}, x[:, N:])
+                          {k: v.to(dev) for k, v in st1.items()},
+                          x[..., N:])
     row["max_abs_err"] = float(max(err, err2))
 
     L714 = streams.ChannelLayout.L714
     cases = {
         # the binaural 30 s cell's second limiter batch: C = 2, retriggering
         # every ~1.6 samples
-        "engaged": _limiter_batch(dev, streams.build_pcm_layout_stream(
+        "engaged": _limiter_calls(dev, streams.build_pcm_layout_stream(
             L714, n_frames=2 * B_MAIN, amp=0.5, hrm=1)[0],
-            dict(binaural=True)),
+            dict(binaural=True))[1],
         # the PCM 30 s cell's second batch: C = 12, below the threshold
-        "idle": _limiter_batch(dev, streams.build_pcm_layout_stream(
-            L714, n_frames=2 * B_MAIN, amp=0.5)[0], dict(sound_system=9)),
+        "idle": _limiter_calls(dev, streams.build_pcm_layout_stream(
+            L714, n_frames=2 * B_MAIN, amp=0.5)[0], dict(sound_system=9))[1],
     }
     for name, (cfg, st, x) in cases.items():
-        C = x.shape[0]
+        C = x.shape[1]
         err, twin_ms, new_p = k3_check(f"{name} [{C}, {N}]", cfg, st, x)
-        check((float(new_p["env"][3]) != -1.0) == (name == "engaged"),
+        check((float(new_p["env"][0, 3]) != -1.0) == (name == "engaged"),
               f"K3 {name}: the envelope is {new_p['env'].tolist()}")
         row["max_abs_err"] = max(row["max_abs_err"], float(err))
         ms = cuda_ms(lambda: limiter.limit_quantize_cuda(cfg, st, x, 16))
@@ -711,7 +742,8 @@ def _twin_times(tag, name, fast, plain, reps=20, plain_reps=20):
 
 def k8_inputs(C, B, dev):
     """K8's inputs for a C-channel bed (12: 7.1.4, 10: 7.1.2) of B frames:
-    (the layout's Hrir for batches of B, x [C, B*960], a live carry)."""
+    (the layout's Hrir for batches of B, x [1, C, B*960], a live carry
+    [1, 2, 255]: one stream)."""
     from iamf_tpu_torch.tools import streams
     from iamf_tpu_torch.dsp import binaural
 
@@ -719,9 +751,9 @@ def k8_inputs(C, B, dev):
               10: streams.ChannelLayout.L712}[C]
     rng = np.random.RandomState(C * 1000 + B)
     h = binaural.hrir_for_batch(binaural.hrir_bank(layout), B, FRAME, dev)
-    x = torch.from_numpy((rng.randn(C, B * FRAME) * 0.3).astype(
+    x = torch.from_numpy((rng.randn(1, C, B * FRAME) * 0.3).astype(
         np.float32)).to(dev)
-    ov = torch.from_numpy((rng.randn(2, 255) * 0.1).astype(
+    ov = torch.from_numpy((rng.randn(1, 2, 255) * 0.1).astype(
         np.float32)).to(dev)
     return h, x, ov
 
@@ -785,19 +817,19 @@ def k8_library(tag, h, x, ov, y_p, o_p):
     check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
     taps = h.bank.shape[2]
     w = h.bank.flip(-1).contiguous()
-    full = F.conv1d(x[None], w, padding=taps - 1)[0]
-    full[:, :taps - 1] += ov
-    N = x.shape[1]
-    err = max(float((full[:, :N] - y_p).abs().max()),
-              float((full[:, N:] - o_p).abs().max()))
+    full = F.conv1d(x, w, padding=taps - 1)
+    full[..., :taps - 1] += ov
+    N = x.shape[2]
+    err = max(float((full[..., :N] - y_p).abs().max()),
+              float((full[..., N:] - o_p).abs().max()))
     print(f"F.conv1d yardstick for K8: max|diff| vs twin {err:.3e} "
           f"(bound 1e-4)")
     check(err <= 1e-4, f"F.conv1d disagrees with K8's twin: {err}")
-    ms = cuda_ms(lambda: F.conv1d(x[None], w, padding=taps - 1))
-    dev, per = device_ms(lambda: F.conv1d(x[None], w, padding=taps - 1),
+    ms = cuda_ms(lambda: F.conv1d(x, w, padding=taps - 1))
+    dev, per = device_ms(lambda: F.conv1d(x, w, padding=taps - 1),
                          "F.conv1d for K8")
     top = max(per, key=per.get) if per else "none"
-    print(f"F.conv1d [{x.shape[0]} -> 2, {N}]: {ms:.4f} ms per call, "
+    print(f"F.conv1d [{x.shape[1]} -> 2, {N}]: {ms:.4f} ms per call, "
           f"device {dev:.4f} ms ({top[:60]}) {tag}")
     return ms
 
@@ -904,8 +936,8 @@ def k10_k3_phase(dev, tag):
         [_loud_planar(n, LANES, n // 2, n // 2 + 48000),
          np.zeros((LANES, 240), np.float32)], axis=1))
     cfg = limiter.LimiterConfig(channels=LANES)
-    x_d = xs.to(dev)
-    st = limiter.init_state(cfg, dev)
+    x_d = xs.to(dev)[None]
+    st = {k: v[None] for k, v in limiter.init_state(cfg, dev).items()}
     _, plain_ms, _ = k3_check(f"over a 30 s stream [{LANES}, "
                               f"{xs.shape[1]}] with a +4 dB burst", cfg, st,
                               x_d)
@@ -1043,19 +1075,19 @@ def k9_library(tag, x, hist, pk_p):
     check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
     w = torch.from_numpy(limiter.truepeak_filters()[:, None, ::-1].copy()
                          ).to(x.device)
-    xc = torch.cat([hist, x], dim=1)[:, None]
+    xc = torch.cat([hist, x], dim=2)[0, :, None]  # one stream's channels
 
     def conv():
         return F.conv1d(xc, w)
 
     pk = conv().abs().amax(dim=(0, 1))
-    err = float((pk - pk_p).abs().max())
-    print(f"F.conv1d yardstick for K9 [{x.shape[0]}, 4 phases x 12 taps]: "
+    err = float((pk - pk_p[0]).abs().max())
+    print(f"F.conv1d yardstick for K9 [{x.shape[1]}, 4 phases x 12 taps]: "
           f"max|diff| vs twin {err:.3e} (bound 1e-6)")
     check(err <= 1e-6, f"F.conv1d disagrees with K9's twin: {err}")
     ms = cuda_ms(conv)
     dev_ms, _ = device_ms(conv, "F.conv1d for K9")
-    print(f"F.conv1d [{x.shape[0]}, {x.shape[1]}]: {ms:.4f} ms per call, "
+    print(f"F.conv1d [{x.shape[1]}, {x.shape[2]}]: {ms:.4f} ms per call, "
           f"device {dev_ms:.4f} ms {tag}")
     return ms
 
@@ -1080,13 +1112,14 @@ def truepeak_ops(C: int, N: int) -> float:
 
 
 def k9_inputs(C, dev):
-    """K9's inputs at [C, 128·960]: a nonzero history and two batches."""
+    """K9's inputs for one stream at [1, C, 128·960]: a nonzero history
+    [1, C, 11] and two batches."""
     from iamf_tpu_torch.dsp import limiter
 
     rng = np.random.RandomState(C)
-    hist = torch.from_numpy((rng.randn(C, limiter.TP_HIST) * 0.5).astype(
-        np.float32)).to(dev)
-    xs = [torch.from_numpy((rng.randn(C, B_MAIN * FRAME) * 0.3).astype(
+    hist = torch.from_numpy((rng.randn(1, C, limiter.TP_HIST) * 0.5
+                             ).astype(np.float32)).to(dev)
+    xs = [torch.from_numpy((rng.randn(1, C, B_MAIN * FRAME) * 0.3).astype(
         np.float32)).to(dev) for _ in range(2)]
     return hist, xs
 
@@ -1305,6 +1338,455 @@ def resample_phase(dev, tag, kernels):
     return launches
 
 
+# --- phase 11: the stream axis of K3, K9 and K8; the lane fold of K1, K2, K7
+
+S_FLEET = 4  # the full-width fleets' streams
+
+
+def _k3_stream_case(dev, tag, name, calls):
+    """K3 at S = 4 on four consecutive batches of a decode (each stream
+    with the state its decode carried in) against four S = 1 calls on the
+    card: 0 LSB and an equal state (the envelope bit for bit); device
+    times side by side."""
+    from iamf_tpu_torch.dsp import limiter
+
+    cfg = calls[0][0]
+    st = {k: torch.cat([c[1][k] for c in calls]) for k in calls[0][1]}
+    x = torch.cat([c[2] for c in calls])
+    S, C, N = x.shape
+    new, q = limiter.limit_quantize_cuda(cfg, st, x, 16)
+    worst, same = 0, True
+    for s, (_, st1, x1) in enumerate(calls):
+        new1, q1 = limiter.limit_quantize_cuda(cfg, st1, x1, 16)
+        worst = max(worst, int((q[s:s + 1].int() - q1.int()).abs().max()))
+        same &= all(torch.equal(new[k][s:s + 1].view(torch.int32),
+                                new1[k].view(torch.int32)) for k in new)
+    idle = [float(e) == -1.0 for e in new["env"][:, 3]]
+    print(f"K3 {name} [{S}, {C}, {N}] against {S} S = 1 calls: int16 "
+          f"max|diff| {worst} (bound 0), states bit-equal {same}; idle "
+          f"after the batch {idle}")
+    check(worst == 0 and same, f"K3 {name}: S = {S} differs from S = 1")
+    check(not any(idle) if name == "engaged" else all(idle),
+          f"K3 {name}: envelopes {new['env'].tolist()}")
+
+    def k3_s():
+        return limiter.limit_quantize_cuda(cfg, st, x, 16)
+
+    def k3_1():
+        return limiter.limit_quantize_cuda(cfg, calls[0][1], calls[0][2], 16)
+
+    ms_s, ms_1 = cuda_ms(k3_s), cuda_ms(k3_1)
+    dev_s, per_s = device_ms(k3_s, f"K3 {name} S={S}")
+    dev_1, per_1 = device_ms(k3_1, f"K3 {name} S=1")
+    walk_s = sum(v for k, v in per_s.items() if "gain_walk" in k)
+    walk_1 = sum(v for k, v in per_1.items() if "gain_walk" in k)
+    D = cfg.delay_size
+    b = bound(nbytes(x, q) + 2 * S * (4 * C * D + 4 * D + 4 + 16),
+              S * N * (2 * C + 3 + 10 + 3 * C), FP32_FLOPS)
+    n_dev = device_launches(k3_s)
+    print(f"K3 {name} S={S}: {ms_s:.4f} ms per call, device {dev_s:.4f} ms "
+          f"(gain walk {walk_s:.4f} ms) in {n_dev} device launches; S=1: "
+          f"{ms_1:.4f} ms per call, device {dev_1:.4f} ms (walk "
+          f"{walk_1:.4f} ms); S={S} / S=1 device {dev_s / dev_1:.2f}x; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {S}x the bytes of one "
+          f"stream); the walk's latency floor is one stream's chain (the S "
+          f"walks run side by side) {tag}")
+    check(n_dev == 4, f"K3 made {n_dev} device launches at S = {S}")
+
+
+def stream_axis_phase(dev, tag):
+    """K3, K9 and K8 take S = 4 streams in one launch; K1, K2 and K7 take
+    them folded into 48 lanes (batch_decoder.lane_synth). Each against S
+    separate calls on the card."""
+    from iamf_tpu_torch.codecs.aac import synth as aac
+    from iamf_tpu_torch.codecs.opus import synth
+    from iamf_tpu_torch.codecs.opus.imdct import K1
+    from iamf_tpu_torch.core.batch_decoder import lane_synth
+    from iamf_tpu_torch.dsp import binaural, limiter
+    from iamf_tpu_torch.tools import streams
+
+    L714 = streams.ChannelLayout.L714
+    S, N = S_FLEET, B_MAIN * FRAME
+    n = (S + 1) * B_MAIN
+    _k3_stream_case(dev, tag, "engaged", _limiter_calls(
+        dev, streams.build_pcm_layout_stream(L714, n_frames=n, amp=0.5,
+                                             hrm=1)[0],
+        dict(binaural=True))[1:S + 1])
+    _k3_stream_case(dev, tag, "idle", _limiter_calls(
+        dev, streams.build_pcm_layout_stream(L714, n_frames=n, amp=0.5)[0],
+        dict(sound_system=9))[1:S + 1])
+
+    # K9: four streams' batches and histories at [12, N]
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy((rng.randn(S, LANES, N) * 0.3).astype(
+        np.float32)).to(dev)
+    hist = torch.from_numpy((rng.randn(S, LANES, limiter.TP_HIST) * 0.5
+                             ).astype(np.float32)).to(dev)
+    pk, h = limiter.truepeak_cuda(x, hist)
+    same = all(torch.equal(pk[s:s + 1], p1) and torch.equal(h[s:s + 1], h1)
+               for s in range(S) for p1, h1 in [limiter.truepeak_cuda(
+                   x[s:s + 1], hist[s:s + 1])])
+    print(f"K9 [{S}, {LANES}, {N}] against {S} S = 1 calls: bit-equal "
+          f"{same}")
+    check(same, "K9: S = 4 differs from S = 1")
+    k9_s = (lambda: limiter.truepeak_cuda(x, hist))
+    k9_1 = (lambda: limiter.truepeak_cuda(x[:1], hist[:1]))
+    dev_s, _ = device_ms(k9_s, f"K9 S={S}")
+    dev_1, _ = device_ms(k9_1, "K9 S=1")
+    b = bound(nbytes(x, hist, pk, h), truepeak_ops(S * LANES, N), FP32_FLOPS)
+    n_dev = device_launches(k9_s)
+    print(f"K9 S={S}: {cuda_ms(k9_s):.4f} ms per call, device {dev_s:.4f} "
+          f"ms in {n_dev} device launch; S=1: "
+          f"{cuda_ms(k9_1):.4f} ms per call, device {dev_1:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}) {tag}")
+    check(n_dev == 1, f"K9 made {n_dev} device launches at S = {S}")
+
+    # K8: four streams' 7.1.4 beds, one bank
+    hr, _, _ = k8_inputs(LANES, B_MAIN, dev)
+    x = torch.from_numpy((rng.randn(S, LANES, N) * 0.3).astype(
+        np.float32)).to(dev)
+    ov = torch.from_numpy((rng.randn(S, 2, 255) * 0.1).astype(
+        np.float32)).to(dev)
+    y, o = binaural.hrtf_conv_cuda(hr, x, ov)
+    y_p, o_p = binaural.hrtf_conv_plain(hr, x, ov)
+    err = max(float((y - y_p).abs().max()), float((o - o_p).abs().max()))
+    d1 = 0.0
+    for s in range(S):
+        y1, o1 = binaural.hrtf_conv_cuda(hr, x[s:s + 1], ov[s:s + 1])
+        d1 = max(d1, float((y[s:s + 1] - y1).abs().max()),
+                 float((o[s:s + 1] - o1).abs().max()))
+    print(f"K8 [{S}, {LANES}, {N}]: max|diff| vs twin {err:.3e} (bound "
+          f"1e-4; 1.55e-6 at S = 1 in PERF.md), vs {S} S = 1 calls "
+          f"{d1:.3e}")
+    check(err <= 1e-4 and d1 == 0.0, f"K8 at S = {S}: {err}, {d1}")
+    k8_s = (lambda: binaural.hrtf_conv_cuda(hr, x, ov))
+    k8_1 = (lambda: binaural.hrtf_conv_cuda(hr, x[:1], ov[:1]))
+    dev_s, _ = device_ms(k8_s, f"K8 S={S}")
+    dev_1, _ = device_ms(k8_1, "K8 S=1")
+    b = bound(nbytes(x, hr.bank, ov, y, o),
+              S * fft_conv_ops(LANES, 2, N, 256), FP32_FLOPS)
+    n_dev = device_launches(k8_s)
+    print(f"K8 S={S}: {cuda_ms(k8_s):.4f} ms per call, device {dev_s:.4f} "
+          f"ms in {n_dev} device launch; S=1: "
+          f"{cuda_ms(k8_1):.4f} ms per call, device {dev_1:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}) {tag}")
+    check(n_dev == 1, f"K8 made {n_dev} device launches at S = {S}")
+
+    # K1 + K2 and K7 with the streams folded into S * 12 lanes
+    cs = synth.celt_synth(dev)
+    pk = np.stack([_comb_params(rng, B_MAIN, LANES) for _ in range(S)])
+    buf = np.zeros((S, B_MAIN, LANES, FRAME + 13), np.float32)
+    buf[..., :FRAME] = rng.randn(S, B_MAIN, LANES, FRAME) * 1000.0
+    buf[..., FRAME] = rng.rand(S, B_MAIN, LANES) < 0.3  # transient
+    buf[..., FRAME + 1:] = pk[..., 1:]
+    buf = torch.from_numpy(buf).to(dev)
+    carry = synth.SynthCarry(*(torch.from_numpy(
+        (rng.randn(*shape) * 1000.0).astype(np.float32)).to(dev)
+        for shape in ((S, LANES, 60), (S, LANES, synth.HIST), (S, LANES))))
+    fn = lambda b, c: synth.synthesize_packed(cs, b, c)  # noqa: E731
+    n1, n2 = K1.launches, synth.K2.launches
+    pcm, c2 = lane_synth(fn, (buf,), carry)
+    check(K1.launches == n1 + 1 and synth.K2.launches == n2 + 1,
+          "K1/K2 launched other than once for the folded streams")
+    lsb = 0.0
+    for s in range(S):
+        p1, c1 = fn(buf[s], synth.SynthCarry(*(t[s] for t in carry)))
+        lsb = max(lsb, float((pcm[s] - p1).abs().max()) * 32768)
+        check(torch.equal(c2.hist[s], c1.hist),
+              "K2's comb history differs between the fold and one stream")
+    print(f"K1 + K2 at {S} x {LANES} lanes [B={B_MAIN}] against {S} calls "
+          f"of {LANES} lanes: PCM max|diff| {lsb:.0f} LSB (bound 1), comb "
+          f"histories equal")
+    check(lsb <= 1, f"K1/K2 fold: {lsb} LSB")
+    _fold_times(tag, "K1 + K2", ("k1_", "partition_rows", "comb_kernel",
+                                 "deemph_kernel"),
+                lambda: lane_synth(fn, (buf,), carry),
+                lambda: fn(buf[0], synth.SynthCarry(*(t[0] for t in carry))))
+    tabs = aac.Tables().to(dev)
+    spec = torch.from_numpy((rng.randn(S, B_MAIN, LANES, 1024) * 3000.0
+                             ).astype(np.float32)).to(dev)
+    meta = torch.from_numpy(K7_CASES[rng.randint(16, size=(
+        S, B_MAIN, LANES))]).to(dev)
+    ac = torch.from_numpy((rng.randn(S, LANES, 1024) * 3000.0).astype(
+        np.float32)).to(dev)
+    fn7 = lambda sp, me, c: aac.synthesize(tabs, sp, me, c)  # noqa: E731
+    n7 = aac.K7.launches
+    y7, c7 = lane_synth(fn7, (spec, meta), ac)
+    check(aac.K7.launches == n7 + 1, "K7 launched other than once")
+    same = all(torch.equal(y7[s], y1) and torch.equal(c7[s], c1)
+               for s in range(S) for y1, c1 in [fn7(spec[s], meta[s], ac[s])])
+    fill = aac.k7_fill(dev)
+    print(f"K7 at {S} x {LANES} lanes [B={B_MAIN}] against {S} calls of "
+          f"{LANES} lanes: bit-equal {same}; run {aac.k7_run(B_MAIN, S * LANES, fill)}"
+          f" at {S * LANES} lanes, {aac.k7_run(B_MAIN, LANES, fill)} at "
+          f"{LANES} ({fill} warps the card holds)")
+    check(same, "K7 fold differs from one stream's calls")
+    _fold_times(tag, "K7", ("k7_synth",),
+                lambda: lane_synth(fn7, (spec, meta), ac),
+                lambda: fn7(spec[0], meta[0], ac[0]))
+
+
+def _fold_times(tag, name, kernels, fold, one):
+    """Device time of the named kernels in a call with the streams folded
+    into S_FLEET * 12 lanes and in one stream's 12-lane call."""
+    ms = []
+    for label, fn in ((f"{S_FLEET * LANES} lanes", fold), (f"{LANES} lanes",
+                                                           one)):
+        _, per = device_ms(fn, f"{name} at {label}")
+        ms.append(sum(v for k, v in per.items()
+                      if any(n in k for n in kernels)))
+    ratio = f"{ms[0] / ms[1]:.2f}x" if ms[1] else "not in the trace"
+    print(f"{name} device time at {S_FLEET * LANES} lanes {ms[0]:.4f} ms, at "
+          f"{LANES} lanes {ms[1]:.4f} ms ({ratio}) {tag}")
+
+
+# --- phases 12 / 13: fleets through the multi-stream server -----------------
+
+def _calls(d) -> int:
+    """The decode calls of one stream's fetch=False decode: the head-trim
+    warm-up call and one per batch."""
+    return (1 if d.cfg.head_trim else 0) + -(-d.n_frames // d.batch_frames)
+
+
+def fleet_path(dev, tag, label, fleet, kw, kernels, must, n_buckets,
+               timing=True):
+    """Serve `fleet` on the card with MultiStreamServer and hold each stream
+    to its own BatchedStreamDecoder(...).decode_all(fetch=False) on the
+    card: <= 1 LSB (the count of streams at 0 printed). Each kernel's
+    launches in the fleet decode equal the sum, over the buckets, of those
+    of the bucket's longest member's own decode (the same number of
+    calls). With timing: the aggregate realtime factor (all streams' audio
+    seconds over the wall of the server's construction and decode, median
+    of 3 after a warm-up) and a trace. Returns the fleet run's launches."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.core.serving import MultiStreamServer
+
+    def serve():
+        srv = MultiStreamServer(fleet, device=dev, **kw)
+        return srv, srv.decode_all()
+
+    if timing:
+        serve()  # warm-up
+    for k in kernels:
+        k.reset()
+    srv, outs = serve()
+    launches = {k.symbol: k.launches for k in kernels}
+    plain = {k.symbol: k.plain_on_cuda for k in kernels}
+    check(srv.n_buckets == n_buckets,
+          f"{label}: {srv.n_buckets} buckets, want {n_buckets}")
+    longest = {max(idxs, key=lambda i: _calls(srv.decs[i]))
+               for idxs in srv._groups.values()}
+    own = dict.fromkeys(launches, 0)
+    diffs = []
+    for i, stream in enumerate(fleet):
+        for k in kernels:
+            k.reset()
+        mine = BatchedStreamDecoder(stream, device=dev,
+                                    **kw).decode_all(fetch=False)
+        if i in longest:
+            for k in kernels:
+                own[k.symbol] += k.launches
+        check(len(mine) == len(outs[i]), f"{label}: stream {i} batches")
+        diffs.append(max((int((a.int() - b.int()).abs().max())
+                          for a, b in zip(outs[i], mine)), default=0))
+    secs = sum(d.n_frames * d.frame_size - d.lead - d.tail
+               for d in srv.decs) / 48000.0
+    shown = [k for k in launches if launches[k] or own[k]]
+    print(f"{label}: {len(fleet)} streams, {srv.n_buckets} buckets, "
+          f"{secs:.3f} s of audio; max|diff| per stream vs its own card "
+          f"decode {diffs} LSB ({diffs.count(0)} of {len(diffs)} at 0); "
+          f"launches {({k: launches[k] for k in shown})}, the longest "
+          f"members' own decodes {({k: own[k] for k in shown})}; plain twins "
+          f"on CUDA {sum(plain.values())}")
+    check(max(diffs) <= 1, f"{label}: {max(diffs)} LSB")
+    check(launches == own, f"{label}: fleet launches {launches} != {own}")
+    check(all(launches[k.symbol] > 0 for k in must),
+          f"{label}: a kernel of the path did not launch: {launches}")
+    check(not any(plain.values()), f"{label}: a plain twin ran on CUDA")
+    if timing:
+        walls = timed(serve, 3)
+        print(f"{label} aggregate realtime factor "
+              f"{secs / np.median(walls):.2f}x (median of {len(walls)}; "
+              f"{secs:.3f} s audio in {_ms(walls)} ms wall, batch_frames="
+              f"{kw['batch_frames']}) {tag}")
+        trace_decode(serve, label)
+    return launches
+
+
+def fleets_phase(dev, tag, kernels):
+    """Fleets at full width (batch_frames=128): 4 x 30 s of 7.1.4 PCM -> J
+    (one bucket, like the JAX bench's BENCH_STREAMS=4 aggregate); 4 x 30 s
+    binaural M2B (K8 and K3 engaged at S = 4); and a mixed fleet of 30 s and
+    22 s of 7.1.4 PCM with the Opus sample and its first 12 temporal units
+    (two buckets: K1, K2 and K3)."""
+    from iamf_tpu_torch.codecs.opus.imdct import K1
+    from iamf_tpu_torch.codecs.opus.synth import K2
+    from iamf_tpu_torch.dsp.binaural import K8
+    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.tools import streams
+
+    L714 = streams.ChannelLayout.L714
+    n30 = 1500
+    pcm = [streams.build_pcm_layout_stream(L714, n_frames=n30,
+                                           amp=0.2 + 0.1 * s, seed=s)[0]
+           for s in range(S_FLEET)]
+    fleet_path(dev, tag, "fleet pcm 4 x 7.1.4 30 s -> ssJ", pcm,
+               dict(sound_system=9, batch_frames=B_MAIN), kernels, (K3,), 1)
+    binaural = [streams.build_pcm_layout_stream(L714, n_frames=n30,
+                                                amp=0.2 + 0.1 * s, seed=s,
+                                                hrm=1)[0]
+                for s in range(S_FLEET)]
+    fleet_path(dev, tag, "fleet binaural 4 x 7.1.4 M2B 30 s", binaural,
+               dict(binaural=True, batch_frames=B_MAIN), kernels, (K8, K3), 1)
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    desc, units = streams.split_into_units(sample)
+    hetero = [pcm[0], streams.build_pcm_layout_stream(
+        L714, n_frames=1100, amp=0.4, seed=7)[0], sample,
+        desc + b"".join(units[:12])]
+    fleet_path(dev, tag, "fleet hetero pcm 30 s + 22 s + opus sample + cut",
+               hetero, dict(sound_system=9, batch_frames=B_MAIN), kernels,
+               (K1, K2, K3), 2)
+
+
+def short_fleets_phase(dev, tag, kernels):
+    """Short fleets at batch_frames=16, checked as the full-width ones but
+    untimed: 2 AAC-LC 7.1.4 streams (K7 at 24 lanes), 3 true-peak streams of
+    unequal length (IAMF_TRUEPEAK=1: K9 and K3 at S = 3), a scalable-demix
+    pair; then the refusals."""
+    from iamf_tpu_torch.codecs.aac.synth import K7
+    from iamf_tpu_torch.core.serving import MultiStreamServer
+    from iamf_tpu_torch.dsp.limiter import K3, K9
+    from iamf_tpu_torch.tools import streams
+
+    L = streams.ChannelLayout
+    kw = dict(sound_system=9, batch_frames=16)
+    aac = [streams.build_aac_layout_stream(L.L714, n_frames=40, seed=s)[0]
+           for s in (5, 6)]
+    fleet_path(dev, tag, "fleet aac 2 x 7.1.4", aac, kw, kernels, (K7, K3),
+               1, timing=False)
+    tp = [streams.build_pcm_layout_stream(
+        L.L714, n_frames=n, pcm_override=streams.isp_tone_pcm(n, 12))[0]
+        for n in (40, 29, 17)]
+    old = os.environ.get("IAMF_TRUEPEAK")
+    os.environ["IAMF_TRUEPEAK"] = "1"
+    try:
+        fleet_path(dev, tag, "fleet true peak 3 x 7.1.4 (40, 29, 17 frames)",
+                   tp, kw, kernels, (K9, K3), 1, timing=False)
+    finally:
+        if old is None:
+            del os.environ["IAMF_TRUEPEAK"]
+        else:
+            os.environ["IAMF_TRUEPEAK"] = old
+    scal = [streams.build_scalable_pcm_stream(
+        n_frames=40, demix_modes=[f % 3 for f in range(40)],
+        recon_gains=[(200, 180), (255, 255), (120, 90)], amp=a)[0]
+        for a in (0.3, 0.5)]
+    fleet_path(dev, tag, "fleet scalable demix 2 x 5.1 -> 5.1", scal,
+               dict(sound_system=1, batch_frames=16), kernels, (K3,), 1,
+               timing=False)
+    ok = streams.build_pcm_layout_stream(L.L714, n_frames=8)[0]
+    bad = {"44.1 kHz": streams.build_pcm_51_stream(n_frames=8,
+                                                   rate=44100)[0],
+           "reconfigured": ok + streams.build_pcm_51_stream(n_frames=8)[0]}
+    for what, stream in bad.items():
+        try:
+            MultiStreamServer([ok, stream], device=dev, **kw)
+        except ValueError as e:
+            print(f"fleet with a {what} stream refused: {e}")
+        else:
+            raise AssertionError(f"a {what} stream was served")
+
+
+# --- phases 14 / 15: reconfigure segments and MP4 ---------------------------
+
+def _golden():
+    return np.load(os.path.join(ROOT, "iamf_tpu_torch", "data",
+                                "sample_opus_714_ssJ.npz"))["pcm"]
+
+
+def reconfigure_phase(dev, tag, kernels):
+    """The Opus sample, then 30 s of 7.1.4 PCM, one stream -> J at
+    batch_frames=128: against the CPU run, its first segment against the
+    golden without its last delay_size samples (the reference's
+    reconfigure never emits them), one entry under stats["segments"]."""
+    from iamf_tpu_torch.codecs.opus.imdct import K1
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.tools import streams
+
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    pcm = streams.build_pcm_layout_stream(streams.ChannelLayout.L714,
+                                          n_frames=1500, amp=0.5)[0]
+    kw = dict(sound_system=9, batch_frames=B_MAIN)
+    decode_path(dev, tag, "reconfigure opus sample + pcm 7.1.4 30 s -> ssJ",
+                sample + pcm, kw, kernels, (K1, K3))
+    dec = BatchedStreamDecoder(sample + pcm, device=dev, **kw)
+    got = dec.decode_all()
+    golden = _golden()
+    d = 240  # LimiterConfig.delay_size
+    n0 = len(golden) - d
+    err = int(np.abs(got[:n0].astype(np.int32)
+                     - golden[:n0].astype(np.int32)).max())
+    print(f"reconfigure: first segment ({n0} samples) vs the golden less its "
+          f"last {d}: max|diff| {err} LSB; {len(got) - n0} samples after; "
+          f"segments {len(dec.stats.get('segments', []))}, paths "
+          f"{[e['path'] for e in dec.stats['elements']]} then "
+          f"{[e['path'] for s in dec.stats['segments'] for e in s['elements']]}")
+    check(err <= 1, f"reconfigure first segment: {err} LSB")
+    check(len(dec.stats["segments"]) == 1, "reconfigure: segments")
+    check(len(got) - n0 == 1500 * FRAME, "reconfigure: second segment length")
+
+
+def mp4_phase(dev, tag, kernels):
+    """The Opus sample muxed by the port's mp4builder into MP4 and fMP4:
+    from_mp4 -> J at batch_frames=8 against the golden; with start_sec=0.1
+    against the CPU run of the same file."""
+    from iamf_tpu_torch.codecs.opus.imdct import K1
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.tools import streams
+
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    out_dir = tempfile.mkdtemp()
+    golden = _golden()
+    for name, data in (("mp4", streams.build_mp4(sample)),
+                       ("fmp4", streams.build_fmp4(sample, fragments=3))):
+        path = os.path.join(out_dir, f"sample_opus_714.{name}")
+        with open(path, "wb") as f:
+            f.write(data)
+        for k in kernels:
+            k.reset()
+
+        def run(device, start=0.0):
+            return BatchedStreamDecoder.from_mp4(
+                path, start_sec=start, sound_system=9, batch_frames=B_OPUS,
+                device=device).decode_all()
+
+        got = run(dev)
+        launches = {k.symbol: k.launches for k in kernels}
+        err = int(np.abs(got.astype(np.int32)
+                         - golden.astype(np.int32)).max())
+        walls = timed(lambda: run(dev), 5)
+        secs = got.shape[0] / 48000.0
+        print(f"{name} opus sample -> ssJ: max|diff| vs golden {err} LSB; "
+              f"launches {launches}; realtime factor "
+              f"{secs / np.median(walls):.2f}x (median of 5; {_ms(walls)} ms "
+              f"wall) {tag}")
+        check(got.shape == golden.shape and err <= 1, f"{name}: {err} LSB")
+        check(launches[K1.symbol] > 0 and launches[K3.symbol] > 0,
+              f"{name}: {launches}")
+        seek, want = run(dev, 0.1), run("cpu", 0.1)
+        err = int(np.abs(seek.astype(np.int32) - want.astype(np.int32)).max())
+        print(f"{name} seek 0.1 s: shape {seek.shape}, max|diff| vs CPU run "
+              f"{err} LSB")
+        check(seek.shape == want.shape and len(seek) < len(got) and err <= 1,
+              f"{name} seek: {err} LSB")
+    shutil.rmtree(out_dir)
+
+
 def main() -> int:
     from iamf_tpu_torch import require_cuda
     from iamf_tpu_torch.codecs.aac.synth import K7
@@ -1325,19 +1807,38 @@ def main() -> int:
     print(f"build: {secs:.2f} s for {len(kbuild.sources())} sources -> "
           f"{os.path.relpath(path, ROOT)}")
 
-    rows = [k1_phase(dev, tag, path), k2_phase(dev, tag),
-            k3_phase(dev, tag, path)]
+    t_all = time.perf_counter()
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s wall")
+        return out
+
     kernels = (K1, K2, K3, K7, K8, K9, K10)
-    launches = opus_phase(dev, tag, (K1, K2, K3))
-    pcm_phase(dev, tag)
-    rows += [k8_phase(dev, tag), k10_k3_phase(dev, tag)]
-    launches[K8.symbol] = binaural_phase(dev, tag, kernels)[K8.symbol]
-    launches[K10.symbol] = resample_phase(dev, tag, kernels)[K10.symbol]
-    rows += [k7_phase(dev, tag, path), k9_phase(dev, tag, path)]
-    launches[K7.symbol] = aac_phase(dev, tag, kernels,
-                                    (K1, K2, K8, K9, K10))[K7.symbol]
-    launches[K9.symbol] = truepeak_phase(dev, tag, kernels,
-                                         (K1, K2, K7, K8, K10))[K9.symbol]
+    rows = [phase("2 K1", k1_phase, dev, tag, path),
+            phase("2 K2", k2_phase, dev, tag),
+            phase("2 K3", k3_phase, dev, tag, path)]
+    launches = phase("3 opus", opus_phase, dev, tag, (K1, K2, K3))
+    phase("4 pcm", pcm_phase, dev, tag)
+    rows += [phase("5 K8", k8_phase, dev, tag),
+             phase("5 K10 K3", k10_k3_phase, dev, tag)]
+    launches[K8.symbol] = phase("6 binaural", binaural_phase, dev, tag,
+                                kernels)[K8.symbol]
+    launches[K10.symbol] = phase("7 resampled", resample_phase, dev, tag,
+                                 kernels)[K10.symbol]
+    rows += [phase("8 K7", k7_phase, dev, tag, path),
+             phase("8 K9", k9_phase, dev, tag, path)]
+    launches[K7.symbol] = phase("9 aac", aac_phase, dev, tag, kernels,
+                                (K1, K2, K8, K9, K10))[K7.symbol]
+    launches[K9.symbol] = phase("10 true peak", truepeak_phase, dev, tag,
+                                kernels, (K1, K2, K7, K8, K10))[K9.symbol]
+    phase("11 stream axis", stream_axis_phase, dev, tag)
+    phase("12 fleets", fleets_phase, dev, tag, kernels)
+    phase("13 short fleets", short_fleets_phase, dev, tag, kernels)
+    phase("14 reconfigure", reconfigure_phase, dev, tag, kernels)
+    phase("15 mp4", mp4_phase, dev, tag, kernels)
+    print(f"phases 2-15: {time.perf_counter() - t_all:.1f} s wall")
 
     meta = {
         "k1_imdct_tdac": ("iamf_tpu_torch/csrc/imdct.cu",

@@ -6,9 +6,20 @@ given device, so both packages can start a batch from identical state.
   (with the HRIR spectra ``hrtf_H`` that the JAX decoder's _HostPlan adds)
 - ``pipe_carry``: iamf_tpu.core.pipeline.init_carry / decode_frames carry
   (limiter state, ``splice``, ``pos``, the binaural overlap ``hrtf``)
+- ``plan_carry``: the JAX _HostPlan.carry, {"pipe": ..., "syn": [...]}
 - ``synth_carry``: iamf_tpu.codecs.opus.tpu_synth.SynthCarry
 - ``aac_carry``: iamf_tpu.codecs.aac.tpu_synth's [L, 1024] overlap carry
+- ``limiter_state``: iamf_tpu.dsp.limiter's state dict
 - ``pipeline_config``: iamf_tpu.core.pipeline.PipelineConfig
+
+The port's pipeline takes a leading stream axis on its parameters and
+carries (core/pipeline.py). ``stream_params``, ``pipe_carry`` and
+``plan_carry`` give it: a JAX tree of one stream gains an axis of 1, and a
+JAX fleet's stack (stacked=True: the jax.tree.map(_stack, ...) of its
+plans' carries and stream_params, iamf_tpu/core/serving.py:112-113) keeps
+its S, so a test can start a bucket from the JAX fleet's state.
+``limiter_state``, ``synth_carry`` and ``aac_carry`` map shapes one to
+one, leading axes included.
 
 The JAX arrays are passed through ``np.asarray`` by the caller or here;
 this module imports no JAX.
@@ -47,20 +58,32 @@ def pipeline_config(cfg) -> PipelineConfig:
     return PipelineConfig(**d)
 
 
-def stream_params(params: dict, device, cfg=None) -> dict:
-    """put_stream_params pytree -> core/pipeline.stream_params layout.
-    Rows past the padded length are junk in both packages and never read.
-    The binaural spectra hrtf_H {i: [2 (re/im), 2, C, F]} become
-    binaural.Hrir entries: the spectra as they are, and the time-domain
-    bank irfft(...)[..., :taps] at the segment plan of `cfg` (this
-    package's or the JAX PipelineConfig, needed only with hrtf_H)."""
-    out = {k: [_t(a, device, np.float32) for a in params[k]]
+def stream_params(params: dict, device, cfg=None,
+                  stacked: bool = False) -> dict:
+    """put_stream_params pytree -> core/pipeline.stream_params layout, with
+    the stream axis (gained, or kept when `stacked`). Rows past the padded
+    length are junk in both packages and never read. The binaural spectra
+    hrtf_H {i: [2 (re/im), 2, C, F]} become binaural.Hrir entries, which
+    the streams share (a fleet's must be equal): the spectra as they are,
+    and the time-domain bank irfft(...)[..., :taps] at the segment plan of
+    `cfg` (this package's or the JAX PipelineConfig, needed only with
+    hrtf_H)."""
+
+    def put(a, dtype):
+        a = np.asarray(a)
+        return _t(a if stacked else a[None], device, dtype)
+
+    out = {k: [put(a, np.float32) for a in params[k]]
            for k in ("factors", "rg", "mats", "elem_gain")}
-    out["mat_idx"] = [_t(a, device, np.int64) for a in params["mat_idx"]]
-    out["out_gain"] = _t(params["out_gain"], device, np.float32)
+    out["mat_idx"] = [put(a, np.int64) for a in params["mat_idx"]]
+    out["out_gain"] = put(params["out_gain"], np.float32)
     out["hrir"] = {}
     for i, hri in params.get("hrtf_H", {}).items():
         hri = np.asarray(hri)
+        if stacked:
+            if any(not np.array_equal(h, hri[0]) for h in hri):
+                raise ValueError("a fleet's streams need one HRIR bank")
+            hri = hri[0]
         spec = (hri[0] + 1j * hri[1]).astype(np.complex64)
         taps = cfg.elements[i].hrtf_taps
         _, n, _ = batch_seg_plan(cfg.batch_frames, cfg.frame_size, taps)
@@ -71,29 +94,51 @@ def stream_params(params: dict, device, cfg=None) -> dict:
 
 
 def limiter_state(state: dict, device) -> dict:
-    """iamf_tpu.dsp.limiter state dict -> dsp/limiter.py state dict. The
-    envelope time must be one K3 can place: -1 or a value the recurrence
-    reaches (check_reachable_tc; those depend only on the attack, release
-    and rate, which both decoders leave at LimiterConfig's defaults). The
-    true-peak meter's history tp_hist [C, 11] comes along where present."""
-    env = [state[k] for k in ("current_gain", "target_start_gain",
-                              "target_end_gain", "current_tc")]
-    check_reachable_tc(LimiterConfig(), np.asarray(env[3]))
+    """iamf_tpu.dsp.limiter state dict -> dsp/limiter.py state dict, any
+    leading (stream) axes kept. The envelope time must be one K3 can
+    place: -1 or a value the recurrence reaches (check_reachable_tc; those
+    depend only on the attack, release and rate, which both decoders leave
+    at LimiterConfig's defaults). The true-peak meter's history tp_hist
+    [..., C, 11] comes along where present."""
+    env = np.stack([np.asarray(state[k], np.float32)
+                    for k in ("current_gain", "target_start_gain",
+                              "target_end_gain", "current_tc")], axis=-1)
+    for tc in np.ravel(env[..., 3]):
+        check_reachable_tc(LimiterConfig(), tc)
     out = {
-        "env": _t(np.array(env, np.float32), device),
+        "env": _t(env, device),
         "delay_data": _t(state["delay_data"], device, np.float32),
         "peak_data": _t(state["peak_data"], device, np.float32),
-        "entry_index": _t(np.reshape(state["entry_index"], (1,)), device,
-                          np.int32),
+        "entry_index": _t(np.asarray(state["entry_index"])[..., None],
+                          device, np.int32),
     }
     if "tp_hist" in state:
         out["tp_hist"] = _t(state["tp_hist"], device, np.float32)
     return out
 
 
-def pipe_carry(carry: dict, device) -> dict:
-    """Pipeline carry: pos becomes a host int, the rest tensors."""
-    out = {"pos": int(np.asarray(carry["pos"]))}
+def _axis(tree, stacked: bool):
+    """Give a converted tree (tensors in dicts and NamedTuples) the stream
+    axis unless it has it."""
+    if stacked:
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return tree[None]
+    if isinstance(tree, dict):
+        return {k: _axis(v, False) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_axis(v, False) for v in tree))
+    return tree  # the host frame position
+
+
+def pipe_carry(carry: dict, device, stacked: bool = False) -> dict:
+    """Pipeline carry, with the stream axis (gained, or kept when
+    `stacked`): pos becomes a host int (a fleet's streams share it), the
+    rest tensors."""
+    pos = np.unique(np.asarray(carry["pos"]))
+    if pos.size != 1:
+        raise ValueError(f"a fleet's streams share one position: {pos}")
+    out = {"pos": int(pos[0])}
     if "limiter" in carry:
         out["limiter"] = limiter_state(carry["limiter"], device)
     if "splice" in carry:
@@ -101,7 +146,18 @@ def pipe_carry(carry: dict, device) -> dict:
     if "hrtf" in carry:
         out["hrtf"] = {i: _t(v, device, np.float32)
                        for i, v in carry["hrtf"].items()}
-    return out
+    return _axis(out, stacked)
+
+
+def plan_carry(carry: dict, device, stacked: bool = False) -> dict:
+    """The JAX _HostPlan.carry {"pipe": ..., "syn": [per element]} ->
+    batch_decoder.fused_decode's carry, with the stream axis: an Opus
+    element's SynthCarry, an AAC element's overlap array, None for PCM."""
+    syn = [None if c is None
+           else _axis(aac_carry(c, device) if hasattr(c, "shape")
+                      else synth_carry(c, device), stacked)
+           for c in carry["syn"]]
+    return {"pipe": pipe_carry(carry["pipe"], device, stacked), "syn": syn}
 
 
 def synth_carry(carry, device) -> SynthCarry:

@@ -28,15 +28,28 @@ and are joined, K10 resamples the trimmed stream to 48 kHz, then the
 normalization gain, the limiter (K3, one call over the stream and its
 drain) or plain quantization, and one copy to the host.
 
+The device step takes a leading stream axis (fused_decode, and
+core/pipeline.py): one decoder runs it with S = 1, the multi-stream server
+(core/serving.py) with a bucket of S streams, from the same _HostPlan per
+stream.
+
+A non-redundant Sequence Header after the first starts a reconfigure
+segment (IAMF_decoder.c:2918-2921, iamfplayer.c:623-626): this decoder
+decodes up to it, and decode_all chains a follow-on decoder over the rest
+on the same device. ``from_mp4`` opens IAMF in MP4 or fragmented MP4
+(mp4/iamf_track.py), with an optional seek. ``stats`` names each element's
+decode path.
+
 Not ported yet, and raising NotImplementedError: other Opus operating
-points, SILK and hybrid included (ROADMAP.md §1 item 5), AAC with frames
-other than 1024 samples, and mid-stream reconfigure segments (item 10).
+points, SILK and hybrid included (ROADMAP.md §1 item 5), and AAC with
+frames other than 1024 samples.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -58,6 +71,7 @@ from ..dsp.downmix import DownmixerState, can_downmix, downmix_matrix
 from ..dsp.limiter import LimiterConfig, init_state, limit_quantize
 from ..dsp.quantize import quantize_interleave
 from ..dsp.resample import ResamplePlan, resample_stream
+from ..mp4.iamf_track import MP4IAMFParser
 from ..obu import parser
 from . import timeline
 from .database import Database, codec_config_sampling_rate
@@ -84,22 +98,62 @@ class _ElemCtx:
     hrtf_bank: object = None  # np.ndarray [2, n_bed, taps] | None: the HRIRs
     #   of a binaural (M2B/H2B) element; render_mat then yields the bed
 
+    @property
+    def lanes(self) -> int:
+        """Channel lanes of an Opus or AAC element's synthesis."""
+        return sum(ch for _, ch in self.codec._decoders)
+
+
+def _carry_map(f, c):
+    """f over a synthesis carry: a tensor (AAC) or a SynthCarry (Opus)."""
+    return f(c) if isinstance(c, torch.Tensor) else type(c)(*map(f, c))
+
+
+def lane_synth(fn, inputs: tuple, carry):
+    """A synthesis fn(*inputs [B, L, ...], carry [L, ...]) -> (pcm [B, L,
+    n], carry') over S streams: inputs [S, B, L, ...], carry [S, L, ...].
+    The lanes carry independent state, so on the card the streams fold
+    into S·L lanes and fn launches its kernels once for all of them (K1
+    and K2, or K7); on the CPU the twins run stream by stream, since a CPU
+    matmul rounds differently with its row count and a served stream must
+    equal its own decode bit for bit."""
+    S, B, L = inputs[0].shape[:3]
+    if inputs[0].is_cuda:
+        pcm, c = fn(*(a.transpose(0, 1).reshape((B, S * L) + a.shape[3:])
+                      for a in inputs),
+                    _carry_map(lambda t: t.reshape((S * L,) + t.shape[2:]),
+                               carry))
+        return (pcm.reshape((B, S, L) + pcm.shape[2:]).transpose(0, 1),
+                _carry_map(lambda t: t.reshape((S, L) + t.shape[1:]), c))
+    outs = [fn(*(a[s] for a in inputs),
+               _carry_map(lambda t: t[s], carry)) for s in range(S)]
+    cs = [c for _, c in outs]
+    c0 = cs[0]
+    return (torch.stack([p for p, _ in outs]),
+            torch.stack(cs) if isinstance(c0, torch.Tensor)
+            else type(c0)(*map(torch.stack, zip(*cs))))
+
 
 def fused_decode(cfg: PipelineConfig, kinds: tuple, synths: dict,
                  carry: dict, params: dict, bufs: list):
     """Codec synthesis for each element, then the decode pipeline, for one
-    batch. synths: the synthesis constants by kind ("opus": CeltSynth,
-    "aac": aac_synth.Tables); an AAC element's input is (spec, meta).
-    Returns (carry, pcm [B*T, out] int)."""
+    batch of S streams (S = 1 for one decoder; core/serving.py stacks a
+    bucket). synths: the synthesis constants by kind ("opus": CeltSynth,
+    "aac": aac_synth.Tables); bufs: per element [S, B, ...] (an AAC
+    element's input is (spec, meta)); carry: per-stream state with a
+    leading stream axis. Returns (carry, pcm [S, B*T, out] int)."""
     xs = []
     syn = []
     for i, kind in enumerate(kinds):
         if kind == "opus":
-            x, s = opus_synth.synthesize_packed(synths["opus"], bufs[i],
-                                                carry["syn"][i])
+            x, s = lane_synth(
+                functools.partial(opus_synth.synthesize_packed,
+                                  synths["opus"]), (bufs[i],),
+                carry["syn"][i])
         elif kind == "aac":
-            x, s = aac_synth.synthesize(synths["aac"], *bufs[i],
-                                        carry["syn"][i])
+            x, s = lane_synth(
+                functools.partial(aac_synth.synthesize, synths["aac"]),
+                bufs[i], carry["syn"][i])
         elif kind == "raw":
             x, s = bufs[i], carry["syn"][i]
         else:
@@ -110,40 +164,79 @@ def fused_decode(cfg: PipelineConfig, kinds: tuple, synths: dict,
     return {"pipe": pipe, "syn": syn}, pcm
 
 
-class _HostPlan:
-    """Host-side plan of one decode: whole-stream parameter tensors,
-    per-element input (unpacked PCM, or prefetched Opus entropy), initial
-    carries, and the call/trim bookkeeping."""
+def plan_kinds(dec: "BatchedStreamDecoder") -> tuple:
+    """Each element's synthesis kind ("opus", "aac", "raw"): with the
+    PipelineConfig, the key of the device step, so also the serving
+    bucket's."""
+    return tuple("opus" if e.opus else "aac" if e.aac else "raw"
+                 for e in dec.elems)
 
-    def __init__(self, dec: "BatchedStreamDecoder"):
+
+def put_bufs(per_stream: list, device, staging: dict) -> list:
+    """S streams' numpy inputs of one call (each a list per element of [B,
+    ...] arrays; an AAC element's a (spec, meta) pair) -> per element one
+    [S, B, ...] tensor on `device`. Each stream's array is copied into a
+    host buffer [S, B, ...] that `staging` keeps from call to call (pinned
+    for a CUDA device, so the copy to the card reads it directly), then
+    the buffer goes to `device` in one blocking copy, after which the next
+    call may refill it."""
+    pin = torch.device(device).type == "cuda"
+
+    def put(key, arrs):
+        if key not in staging:
+            staging[key] = torch.empty(
+                (len(arrs),) + arrs[0].shape,
+                dtype=torch.from_numpy(arrs[0][:0]).dtype, pin_memory=pin)
+        buf = staging[key]
+        host = buf.numpy()
+        for s, a in enumerate(arrs):
+            host[s] = a
+        return buf.to(device, copy=True)
+
+    return [tuple(put((i, j), p) for j, p in enumerate(zip(*parts)))
+            if isinstance(parts[0], tuple) else put(i, parts)
+            for i, parts in enumerate(zip(*per_stream))]
+
+
+class _HostPlan:
+    """Host-side plan of one stream's decode: whole-stream parameter
+    tensors, per-element input (unpacked PCM, or prefetched Opus and AAC
+    entropy), initial carries (each with a stream axis of 1), and the
+    call/trim bookkeeping. Shared by BatchedStreamDecoder.decode_all and
+    serving.MultiStreamServer, which stacks a bucket's plans."""
+
+    def __init__(self, dec: "BatchedStreamDecoder", rows: int | None = None):
         self.dec = dec
         B = self.B = dec.batch_frames
         T = dec.frame_size
         n = self.n = dec.n_frames
         dev = dec.device
         self.n_batches = -(-n // B)
-        # +1 batch of neutral padding so the limiter drain runs past the end
+        # +1 batch of neutral padding so the limiter drain runs past the
+        # end; `rows` overrides the padded length: the server pads every
+        # member of a bucket to its longest stream (padding rows are
+        # neutral), so the [S, ...] stacks are rectangular
         self.stream_params = stream_params(
-            dec.cfg, dec.params, (self.n_batches + 1) * B, dev,
+            dec.cfg, dec.params, rows or (self.n_batches + 1) * B, dev,
             hrtf_banks=[e.hrtf_bank for e in dec.elems])
         self.elem_packets = []
         self.elem_all_x = []
         syn_carry = []
         for e in dec.elems:
-            packets = [dec.frames_per_substream[sid]
+            packets = [dec.frames_per_substream.get(sid, [])
                        for sid in e.substream_ids]
             self.elem_packets.append(packets)
             if e.opus or e.aac:
                 self.elem_all_x.append(None)
-                syn_carry.append((opus_synth if e.opus else aac_synth)
-                                 .init_carry(sum(ch for _, ch in
-                                                 e.codec._decoders), dev))
+                syn_carry.append(_carry_map(
+                    lambda t: t[None],
+                    (opus_synth if e.opus else aac_synth).init_carry(
+                        e.lanes, dev)))
             else:
                 self.elem_all_x.append(e.codec.decode_batch_raw(packets, T)[0])
                 syn_carry.append(None)
         self.carry = {"pipe": init_carry(dec.cfg, dev), "syn": syn_carry}
-        self.kinds = tuple("opus" if e.opus else "aac" if e.aac else "raw"
-                           for e in dec.elems)
+        self.kinds = plan_kinds(dec)
 
         # Output bookkeeping: with the pre-limiter trim splice the first
         # call emits only warm-up zeros, so the kept stream starts at call
@@ -170,6 +263,7 @@ class _HostPlan:
                              else None)
         self._pending = self._submit(0) if self.n_batches else None
         self._bi = 0
+        self._flush = None
 
     def _host_batch(self, i, e, start, count):
         if e.opus:
@@ -198,7 +292,7 @@ class _HostPlan:
 
     def next_bufs(self):
         """Numpy inputs (padded to B frames) for the next call, or None for
-        a trailing flush call (the caller reuses zeros)."""
+        a trailing flush call (the caller takes flush_bufs)."""
         bi = self._bi
         self._bi += 1
         if bi >= self.n_batches:
@@ -208,6 +302,33 @@ class _HostPlan:
                          if bi + 1 < self.n_batches else None)
         return [self._host_batch(*it) if isinstance(it, tuple)
                 else it.result() for it in items]
+
+    def flush_bufs(self) -> list:
+        """The zero input of one call, per element, as numpy (made once,
+        from the plan's shapes): the trailing flush calls, and the calls of
+        a served stream past its end. Opus rows keep legal comb periods
+        (the JAX decoder's have period 0, ROADMAP.md §3; zero gains make
+        the comb an identity either way), AAC rows are ONLY_LONG with sine
+        windows (meta 0)."""
+        if self._flush is None:
+            B = self.B
+            out = []
+            for e, x in zip(self.dec.elems, self.elem_all_x):
+                if e.opus:
+                    z = np.zeros(
+                        (B, e.lanes, opus_synth.FRAME + opus_synth.N_PARAMS),
+                        np.float32)
+                    for col in (opus_synth.PK_T_OLD, opus_synth.PK_T_CUR,
+                                opus_synth.PK_T_NEW):
+                        z[..., opus_synth.FRAME + col] = opus_synth.MINPERIOD
+                elif e.aac:
+                    z = (np.zeros((B, e.lanes, aac_synth.FRAME), np.float32),
+                         np.zeros((B, e.lanes, 3), np.int32))
+                else:
+                    z = np.zeros((B,) + x.shape[1:], x.dtype)
+                out.append(z)
+            self._flush = out
+        return self._flush
 
     def close(self):
         if self.entropy_pool is not None:
@@ -220,6 +341,24 @@ class BatchedStreamDecoder:
     where no card is visible; 'cpu', asked for by name, runs their plain
     twins."""
 
+    @classmethod
+    def from_mp4(cls, path: str, start_sec: float = 0.0, **kw
+                 ) -> "BatchedStreamDecoder":
+        """Open IAMF in MP4 or fragmented MP4: the track is demuxed to a
+        descriptor + packet OBU stream (descriptors re-emitted on a
+        sample-description change, mp4iamfpar.c:111-189; a seek walks the
+        sample deltas, :203-233) and decoded as one stream. kw: the
+        constructor's (device included)."""
+        mp4 = MP4IAMFParser(path)
+        if start_sec > 0:
+            mp4.seek(start_sec)
+        parts = [mp4.descriptors]
+        for packet, new_descriptors in mp4.packets():
+            if new_descriptors:
+                parts.append(new_descriptors)
+            parts.append(packet)
+        return cls(b"".join(parts), **kw)
+
     def __init__(self, data: bytes, sound_system: int = 0, bits: int = 16,
                  batch_frames: int = 128, limiter: bool = True,
                  normalization_db: float | None = None,
@@ -231,6 +370,16 @@ class BatchedStreamDecoder:
         self.bits = bits
         self.batch_frames = batch_frames
         self.db = Database()
+        # the follow-on segment decoder's arguments (reconfigure)
+        self._init_kw = dict(
+            sound_system=sound_system, bits=bits, batch_frames=batch_frames,
+            limiter=limiter, normalization_db=normalization_db,
+            peak_threshold_db=peak_threshold_db, binaural=binaural,
+            mix_presentation_id=mix_presentation_id, device=self.device)
+        self._next_data: bytes | None = None
+        # each element's decode path; "segments" holds the follow-on
+        # decoders' stats after a reconfigured decode_all
+        self.stats: dict = {"elements": []}
         if binaural:
             self.layout = OutputLayout(type=LayoutType.BINAURAL)
         else:
@@ -243,12 +392,14 @@ class BatchedStreamDecoder:
         body = data[off:] if isinstance(data, bytes) else bytes(
             memoryview(data)[off:])
         recs = parser.split_records(body)
+        # a non-redundant Sequence Header after the first ends this
+        # segment: the rest is the follow-on decoder's (decode_all)
         seq = np.flatnonzero(
             (recs[:, 0] == 31) & ((recs[:, 1] & 1) == 0))  # SEQUENCE_HEADER
         if seq.size > 1:
-            raise NotImplementedError(
-                "mid-stream reconfigure segments are not ported yet "
-                "(ROADMAP.md §1 item 10)")
+            j = int(seq[1])
+            self._next_data = body[int(recs[j, 2]):]
+            recs = recs[:j]
         types = recs[:, 0]
         sids = recs[:, 7]
         self.frames_per_substream: dict[int, list[bytes]] = {}
@@ -514,6 +665,12 @@ class BatchedStreamDecoder:
             raise NotImplementedError(
                 f"AAC with {self.frame_size}-sample frames: only 1024-sample "
                 "AAC-LC frames are ported (the device filterbank)")
+        self.stats["elements"].append({
+            "element_id": el.element_id,
+            "path": ("opus_device_celt" if opus else "aac_device" if aac
+                     else "raw_device"),
+            **({"opus_cfg": (opus_synth.FRAME, 1, False)} if opus else {}),
+        })
         return _ElemCtx(
             stream=stream, codec=codec,
             substream_ids=list(el.substream_ids),
@@ -564,21 +721,6 @@ class BatchedStreamDecoder:
                 [meta, np.zeros((pad,) + meta.shape[1:], np.int32)])
         return spec, meta
 
-    @staticmethod
-    def _flush_buf(kind: str, like):
-        """Zero input for a trailing flush call; Opus rows keep legal comb
-        periods (zero gains make the comb an identity either way), AAC rows
-        are ONLY_LONG with sine windows (meta 0)."""
-        if kind == "aac":
-            return tuple(torch.zeros_like(t) for t in like)
-        z = torch.zeros_like(like)
-        if kind == "opus":
-            n = opus_synth.FRAME
-            for col in (opus_synth.PK_T_OLD, opus_synth.PK_T_CUR,
-                        opus_synth.PK_T_NEW):
-                z[..., n + col] = opus_synth.MINPERIOD
-        return z
-
     def _resample_tail(self, full, want: int) -> np.ndarray:
         """Rate-mismatch output stage, on the decoder's device: resample the
         float mix to 48 kHz (K10; the output includes the latency drain),
@@ -609,9 +751,10 @@ class BatchedStreamDecoder:
         # the first delay_size rows dropped
         D = cfg.delay_size
         z = torch.cat([y, y.new_zeros((C, D))], dim=1)
-        _, pcm = limit_quantize(cfg, init_state(cfg, self.device), z,
-                                self.bits, self.frame_size)
-        return self._to_host(pcm[D:])
+        state = {k: v[None] for k, v in init_state(cfg, self.device).items()}
+        _, pcm = limit_quantize(cfg, state, z[None], self.bits,
+                                self.frame_size)
+        return self._to_host(pcm[0, D:])
 
     def _to_host(self, pcm: torch.Tensor) -> np.ndarray:
         """One copy to the host, into pinned memory from the card."""
@@ -620,56 +763,87 @@ class BatchedStreamDecoder:
         out.copy_(pcm)
         return out.numpy()
 
-    def decode_all(self) -> np.ndarray:
-        """Decode the stream; returns [samples, out_channels] int PCM."""
+    def decode_all(self, fetch: bool = True):
+        """Decode the stream, every reconfigure segment in turn. Returns
+        [samples, out_channels] int PCM on the host or, with fetch=False,
+        the list of kept [B*T, out_channels] int batches still on the
+        decoder's device, as the pipeline emits them: no head-trim warm-up
+        call, no flush call, and so with the limiter's look-ahead head and
+        without its drained tail (a resampled stream needs fetch=True).
+
+        Segments: a non-final segment loses the last delay_size samples of
+        its fetch=True output, which the reference never emits (its
+        reconfigure re-inits the limiter without flushing the delay line,
+        IAMF_decoder.c configure :3810), and each segment's stats go under
+        stats["segments"]. With fetch=False the result is every segment's
+        own batch list, one after the other, untrimmed: it holds fetch=True's
+        samples only in the way one segment's batches do (the JAX decoder
+        cuts the last batch of a non-final segment instead,
+        iamf_tpu/core/batch_decoder.py:789-792)."""
+        out = self._decode_segment(fetch)
+        if self._next_data is None:
+            return out
+        if fetch and self.cfg.limiter is not None:
+            d = self.cfg.limiter.delay_size
+            out = out[:-d] if out.shape[0] > d else out[:0]
+        child = BatchedStreamDecoder(self._next_data, **self._init_kw)
+        nxt = child.decode_all(fetch)
+        self.stats.setdefault("segments", []).append(child.stats)
+        if fetch:
+            return np.concatenate([out, nxt], axis=0)
+        return out + nxt
+
+    def _decode_segment(self, fetch: bool):
+        """Decode this segment (decode_all's contract for one segment)."""
         B = self.batch_frames
         T = self.frame_size
         n = self.n_frames
         dev = self.device
+        resample = self.needs_resample
+        if resample and not fetch:
+            raise ValueError(
+                f"stream rate {self.stream_rate} != 48000: the resample tail "
+                "needs fetch=True")
         plan = _HostPlan(self)
         carry = plan.carry
         rows = B * T
         cuda = dev.type == "cuda"
-        resample = self.needs_resample
         # the kept calls' PCM lands in one host array; on the card each
         # batch is copied into pinned memory as soon as it is queued. A
-        # resampled stream keeps its float batches on the device instead.
-        floats = []
-        full = None if resample else torch.empty(
+        # resampled stream keeps its float batches on the device, and so
+        # does fetch=False.
+        kept = []
+        full = None if resample or not fetch else torch.empty(
             ((plan.total_calls - plan.k0) * rows, self.cfg.out_channels),
             dtype=torch.int16 if self.bits == 16 else torch.int32,
             pin_memory=cuda)
-        zero_bufs = None
+        staging: dict = {}
         try:
             for call in range(plan.total_calls):
-                np_bufs = plan.next_bufs()
-                if np_bufs is not None:
-                    bufs = [tuple(torch.from_numpy(a).to(dev) for a in b)
-                            if isinstance(b, tuple)
-                            else torch.from_numpy(b).to(dev)
-                            for b in np_bufs]
-                    if zero_bufs is None:
-                        zero_bufs = [self._flush_buf(k, b)
-                                     for k, b in zip(plan.kinds, bufs)]
-                else:
-                    bufs = zero_bufs  # flush: zero input, neutral params
+                if not fetch and call >= plan.k0 + plan.n_batches:
+                    break  # the flush calls' output is not kept
+                # past the stream's end: zero input, neutral params
+                bufs = put_bufs([plan.next_bufs() or plan.flush_bufs()], dev,
+                                staging)
                 carry, out = fused_decode(self.cfg, plan.kinds, self.synths,
                                           carry, plan.stream_params, bufs)
                 i = call - plan.k0
                 if i < 0:
                     continue
-                if resample:
-                    floats.append(out)
+                if full is None:
+                    kept.append(out[0])
                 else:
-                    full[i * rows:(i + 1) * rows].copy_(out,
+                    full[i * rows:(i + 1) * rows].copy_(out[0],
                                                         non_blocking=cuda)
-            if cuda and not resample:
+            if cuda:
                 torch.cuda.synchronize(dev)
         finally:
             plan.close()
         want = plan.want
+        if not fetch:
+            return kept
         if resample:
-            return self._resample_tail(torch.cat(floats), want)
+            return self._resample_tail(torch.cat(kept), want)
         full = full.numpy()
         if self.cfg.limiter is not None:
             # limiter look-ahead: drop the first delay_size rows; the

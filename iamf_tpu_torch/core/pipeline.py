@@ -1,6 +1,12 @@
 """Batched decode pipeline in PyTorch (counterpart of iamf_tpu/core/pipeline.py).
 
-One call decodes a batch of B = cfg.batch_frames frames:
+One call decodes a batch of B = cfg.batch_frames frames of S streams that
+share one PipelineConfig: every input, parameter and carry tensor has a
+leading stream axis [S, ...]. One decoder is the S = 1 case; the
+multi-stream server (core/serving.py) stacks a bucket of streams, as the
+JAX server vmaps this step (iamf_tpu/core/serving.py:36-44). Demix, render
+and mix fold the streams into the frame axis; K8 and K3 (with K9) take
+the stream axis in one launch each.
 
     per element:  demix chains (dsp/demix.py, elementwise, batched over B)
                   -> render matmul (per-frame matrices, offset-split blend)
@@ -30,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dsp.binaural import hrir_for_batch, hrtf_conv
+from ..dsp.binaural import Hrir, hrir_for_batch, hrtf_conv
 from ..dsp.demix import DemixSpec, demix_frame, make_windows
 from ..dsp.limiter import LimiterConfig, init_state, limit_quantize
 from ..dsp.quantize import quantize_interleave
@@ -77,17 +83,19 @@ class PipelineConfig:
 
 def stream_params(cfg: PipelineConfig, tl, n_padded: int, device,
                   hrtf_banks=None) -> dict:
-    """The replayed timeline (core/timeline.TimelineParams) as whole-stream
-    tensors on `device`, put once per decode. Each per-frame array is padded
-    to n_padded frames with neutral values:
-      factors:  list per element of [Np, 2, 5] float32 (prev/cur factors)
-      rg:       list per element of [Np, n_rg, 3] float32
-      mats:     list per element of [M, out, n_rendered] float32
-      mat_idx:  list per element of [Np, 2] int64 (prev, cur) into mats
-      elem_gain: list per element of [Np] (or [Np, T]) float32
-      out_gain: [Np] (or [Np, T]) float32
+    """The replayed timeline (core/timeline.TimelineParams) of ONE stream as
+    whole-stream tensors on `device`, put once per decode, each with a
+    stream axis of 1 (``stack`` joins a bucket's). Each per-frame array is
+    padded to n_padded frames with neutral values:
+      factors:  list per element of [1, Np, 2, 5] float32 (prev/cur factors)
+      rg:       list per element of [1, Np, n_rg, 3] float32
+      mats:     list per element of [1, M, out, n_rendered] float32
+      mat_idx:  list per element of [1, Np, 2] int64 (prev, cur) into mats
+      elem_gain: list per element of [1, Np] (or [1, Np, T]) float32
+      out_gain: [1, Np] (or [1, Np, T]) float32
       hrir:     {element index: binaural.Hrir} for binaural elements, from
-                hrtf_banks[i] ([2, C_i, taps] numpy, None for the others)"""
+                hrtf_banks[i] ([2, C_i, taps] numpy, None for the others):
+                no stream axis, a bucket's streams share the bank"""
 
     def pad_frames(a, fill):
         if a.shape[0] >= n_padded:
@@ -96,7 +104,8 @@ def stream_params(cfg: PipelineConfig, tl, n_padded: int, device,
         return np.concatenate([a, tail])
 
     def put(a, dtype=np.float32):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)[None]).to(
+            device)
 
     params = {"factors": [], "rg": [], "mats": [], "mat_idx": [],
               "elem_gain": []}
@@ -115,27 +124,54 @@ def stream_params(cfg: PipelineConfig, tl, n_padded: int, device,
 
 
 def init_carry(cfg: PipelineConfig, device) -> dict:
-    """{'pos': frame position (host int), 'limiter': limiter state,
-    'splice': [out, B*T] head-trim carry, 'hrtf': {element index: [2,
-    taps-1] overlap} for binaural elements}."""
+    """One stream's carry, each tensor with a stream axis of 1 (``stack``
+    joins a bucket's): {'pos': frame position (host int, shared by the
+    streams), 'limiter': limiter state [1, ...], 'splice': [1, out, B*T]
+    head-trim carry, 'hrtf': {element index: [1, 2, taps-1] overlap} for
+    binaural elements}."""
     carry = {"pos": 0}
     if cfg.limiter is not None:
-        carry["limiter"] = init_state(cfg.limiter, device)
+        carry["limiter"] = {k: v[None] for k, v in
+                            init_state(cfg.limiter, device).items()}
     if cfg.head_trim:
         carry["splice"] = torch.zeros(
-            (cfg.out_channels, cfg.batch_frames * cfg.frame_size),
+            (1, cfg.out_channels, cfg.batch_frames * cfg.frame_size),
             dtype=torch.float32, device=device)
     if any(es.hrtf_taps for es in cfg.elements):
         carry["hrtf"] = {
-            i: torch.zeros((2, es.hrtf_taps - 1), dtype=torch.float32,
+            i: torch.zeros((1, 2, es.hrtf_taps - 1), dtype=torch.float32,
                            device=device)
             for i, es in enumerate(cfg.elements) if es.hrtf_taps}
     return carry
 
 
+def stack(trees: list):
+    """Join per-stream trees (stream_params, init_carry, synthesis carries)
+    along their stream axis: tensors concatenate, dicts, lists and tuples
+    (NamedTuples too) map, a host int (the shared frame position) and the
+    shared HRIRs must agree across the streams."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return torch.cat(trees)
+    if isinstance(t0, dict):
+        return {k: stack([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(stack(list(v)) for v in zip(*trees)))
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(stack(list(v)) for v in zip(*trees))
+    if isinstance(t0, Hrir):
+        if any(not torch.equal(t.bank, t0.bank) for t in trees):
+            raise ValueError("streams of one bucket need one HRIR bank")
+        return t0
+    if any(t != t0 for t in trees):
+        raise ValueError(f"streams disagree on {t0!r}")
+    return t0
+
+
 def _element_batch(cfg: PipelineConfig, i: int, x, fac, rg, m_prev, m_cur):
-    """Demix + render for ONE element over the batch: [B, out, T] (the
-    virtual-speaker bed [B, C_i, T] for a binaural element)."""
+    """Demix + render for ONE element over the batch's R = S*B frames:
+    [R, out, T] (the virtual-speaker bed [R, C_i, T] for a binaural
+    element)."""
     es = cfg.elements[i]
     T = cfg.frame_size
     dev = x.device
@@ -175,35 +211,42 @@ def _element_batch(cfg: PipelineConfig, i: int, x, fac, rg, m_prev, m_cur):
 
 
 def decode_frames(cfg: PipelineConfig, carry: dict, params: dict, xs: list):
-    """Decode one batch of B = cfg.batch_frames frames.
+    """Decode one batch of B = cfg.batch_frames frames of S streams.
 
-    params: whole-stream tensors from ``stream_params``; the batch window
-    is sliced at the carry's frame position. xs: list per element of this
-    batch's [B, C_in, T] samples (int dtypes are scaled by
-    ElementSpec.input_scale). Returns (carry, pcm int [B*T, out_channels]),
-    or with cfg.emit_float the float32 mix [B*T, out_channels]; pos
-    advances by B."""
+    params: whole-stream tensors from ``stream_params`` (``stack`` of a
+    bucket's); the batch window is sliced at the carry's frame position.
+    xs: list per element of this batch's [S, B, C_in, T] samples (int
+    dtypes are scaled by ElementSpec.input_scale). Returns (carry, pcm int
+    [S, B*T, out_channels]), or with cfg.emit_float the float32 mix
+    [S, B*T, out_channels]; pos advances by B."""
     B = cfg.batch_frames
     T = cfg.frame_size
     C = cfg.out_channels
+    S = xs[0].shape[0]
     pos = carry["pos"]
 
-    def sl(a):
-        return a[pos:pos + B]
+    def sl(a):  # this batch's rows, the streams folded into the frames
+        a = a[:, pos:pos + B]
+        return a.reshape((S * B,) + a.shape[2:])
 
+    rows = torch.arange(S * B, device=xs[0].device) // B  # each row's stream
     mixed = None
     hrtf = dict(carry.get("hrtf", {}))
     for i, es in enumerate(cfg.elements):
         mat_idx = sl(params["mat_idx"][i])
         mats = params["mats"][i]
-        r = _element_batch(cfg, i, xs[i], sl(params["factors"][i]),
-                           sl(params["rg"][i]), mats[mat_idx[:, 0]],
-                           mats[mat_idx[:, 1]])
+        x = xs[i].reshape((S * B,) + xs[i].shape[2:])
+        r = _element_batch(cfg, i, x, sl(params["factors"][i]),
+                           sl(params["rg"][i]), mats[rows, mat_idx[:, 0]],
+                           mats[rows, mat_idx[:, 1]])
         if es.hrtf_taps:
-            # the bed over the batch timeline [C_i, B*T] -> 2 ears
-            bed = r.transpose(0, 1).reshape(r.shape[1], B * T)
+            # each stream's bed over the batch timeline [S, C_i, B*T] ->
+            # 2 ears
+            bed = r.reshape(S, B, -1, T).transpose(1, 2).reshape(
+                S, -1, B * T)
             ears, hrtf[i] = hrtf_conv(params["hrir"][i], bed, hrtf[i])
-            r = ears.reshape(2, B, T).transpose(0, 1)
+            r = ears.reshape(S, 2, B, T).transpose(1, 2).reshape(
+                S * B, 2, T)
         g = sl(params["elem_gain"][i])
         r = r * g[:, None, :] if es.per_sample_gain else r * g[:, None, None]
         mixed = r if mixed is None else mixed + r
@@ -214,16 +257,16 @@ def decode_frames(cfg: PipelineConfig, carry: dict, params: dict, xs: list):
     if hrtf:
         carry["hrtf"] = hrtf
 
-    flat = mixed.transpose(0, 1).reshape(C, B * T)
+    flat = mixed.reshape(S, B, C, T).transpose(1, 2).reshape(S, C, B * T)
     if cfg.head_trim:
         # pre-limiter trim splice: delete the stream's leading trimmed
         # samples from the mixed timeline, at a one-batch output latency
-        seq = torch.cat([carry["splice"], flat], dim=1)
+        seq = torch.cat([carry["splice"], flat], dim=2)
         carry = dict(carry, splice=flat)
-        flat = seq[:, cfg.head_trim:cfg.head_trim + B * T]
+        flat = seq[..., cfg.head_trim:cfg.head_trim + B * T]
 
     if cfg.emit_float:
-        return carry, flat.T
+        return carry, flat.transpose(1, 2)
     if cfg.limiter is not None:
         lim_state, pcm = limit_quantize(cfg.limiter, carry["limiter"], flat,
                                         cfg.bits, T)

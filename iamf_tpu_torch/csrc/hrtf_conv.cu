@@ -1,4 +1,5 @@
-// K8: binaural HRTF convolution of one decode batch, overlap-save FFT.
+// K8: binaural HRTF convolution of one decode batch, overlap-save FFT, for
+// S streams that share one HRIR bank.
 //
 // Replaces the HRTF branch of iamf_tpu/core/pipeline.py decode_frames
 // (:267-320; segmented overlap-add FFT convolution planned by
@@ -9,6 +10,10 @@
 // with x zero outside [0, N). ov' is the same sum at t = N + j with x zero
 // past N (plus ov[N + j] when N < taps - 1), so the blocks simply cover
 // the output index range [0, N + taps - 1) and write t >= N into ov'.
+// With S streams (the multi-stream server's bucket, core/serving.py) x, ov,
+// y and ov' have a leading stream axis and blockIdx.y is the stream; the
+// bank depends only on the layout, which the bucket's streams share, so
+// one table serves them all.
 //
 // What bounds it: as an FFT convolution it needs ~70 M flops at C = 12,
 // taps = 256, N = 128 * 960 (chip_smoke.fft_conv_ops) against ~7 MB of
@@ -126,6 +131,10 @@ hrtf_fft(const float* __restrict__ x, int C, int N,
          int taps, int parts, int lp, const float* __restrict__ ov,
          float* __restrict__ y, float* __restrict__ ov_out) {
   extern __shared__ __align__(16) float sm[];
+  x += (size_t)blockIdx.y * C * N;  // the stream's bed, carries and ears
+  ov += (size_t)blockIdx.y * 2 * (taps - 1);
+  y += (size_t)blockIdx.y * 2 * N;
+  ov_out += (size_t)blockIdx.y * 2 * (taps - 1);
   float2* tw = reinterpret_cast<float2*>(sm);
   float* bufs = sm + 2 * NTW;
   const int lane = threadIdx.x & 31;
@@ -231,16 +240,17 @@ hrtf_fft(const float* __restrict__ x, int C, int N,
 
 }  // namespace
 
-// x: [C, N] bed; pq: [parts, ceil(C/2), F] float4 (P, Q) per bin; tw:
-// [F + 16] float2 twiddles; ov: [2, taps-1] carry in; y: [2, N]; ov_out:
-// [2, taps-1] carry out (must not alias ov). The filter is cut into
-// `parts` parts of lp taps (parts * lp >= taps, lp <= 512).
-extern "C" int iamf_k8_hrtf_conv(const void* x, int C, int N, const void* pq,
-                                 const void* tw, int taps, int parts, int lp,
-                                 const void* ov, void* y, void* ov_out,
-                                 void* stream) {
+// x: [S, C, N] beds; pq: [parts, ceil(C/2), F] float4 (P, Q) per bin; tw:
+// [F + 16] float2 twiddles; ov: [S, 2, taps-1] carries in; y: [S, 2, N];
+// ov_out: [S, 2, taps-1] carries out (must not alias ov). The filter is
+// cut into `parts` parts of lp taps (parts * lp >= taps, lp <= 512).
+extern "C" int iamf_k8_hrtf_conv(const void* x, int S, int C, int N,
+                                 const void* pq, const void* tw, int taps,
+                                 int parts, int lp, const void* ov, void* y,
+                                 void* ov_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C < 1 || N < 0 || taps < 2 || lp < 1 || lp > MAX_PART || parts < 1 ||
+  if (S < 1 || S > 65535 || C < 1 || N < 0 || taps < 2 || lp < 1 ||
+      lp > MAX_PART || parts < 1 ||
       (long long)parts * lp < taps || (long long)(parts - 1) * lp >= taps)
     return (int)cudaErrorInvalidValue;
   const int items = parts * ((C + 1) / 2);
@@ -251,7 +261,7 @@ extern "C" int iamf_k8_hrtf_conv(const void* x, int C, int N, const void* pq,
   if (e != cudaSuccess) return (int)e;
   const int V = F - lp + 1;
   const long long nb = ((long long)N + taps - 1 + V - 1) / V;
-  hrtf_fft<<<(unsigned)nb, nw * 32, smem, s>>>(
+  hrtf_fft<<<dim3((unsigned)nb, S), nw * 32, smem, s>>>(
       (const float*)x, C, N, (const float4*)pq, (const float2*)tw, taps,
       parts, lp, (const float*)ov, (float*)y, (float*)ov_out);
   return (int)cudaGetLastError();

@@ -1,4 +1,6 @@
-// K3: look-ahead peak limiter + quantize/interleave for one decode batch.
+// K3: look-ahead peak limiter + quantize/interleave for one decode batch of
+// S streams (the stream axis of the multi-stream server, core/serving.py;
+// S = 1 for one decoder).
 //
 // Replaces the limiter block of iamf_tpu/core/pipeline.py decode_frames
 // (with _limiter_block, dsp/limiter.py _gain_step and fast_pass) and
@@ -56,6 +58,14 @@
 // place of its W (no trigger either way), its gains stored straight to
 // global memory.
 //
+// Streams. Every array has a leading stream axis, and every phase indexes
+// the stream by a grid dimension: phases 1 and 3 by blockIdx.y, the walk
+// by blockIdx.x, one block a stream. The peak is a maximum over one
+// stream's channels, so each stream has its own gain walk, and the S walks
+// run on S SMs at once; the walk tables are shared (one LimiterConfig for
+// all S). A stream's arithmetic does not depend on S, so each stream's
+// output and state equal those of an S = 1 call on its slice, bit for bit.
+//
 // What bounds it: phase 2 is a dependency chain of one step per sample
 // wherever a tile holds a peak over the threshold (on loud content a
 // retrigger every ~1.6 samples, so no search ahead pays): about 25 issued
@@ -84,7 +94,14 @@ __global__ void seq_peaks(const float* __restrict__ x, int C, int N,
                           const float* __restrict__ pk,
                           const float* __restrict__ peak, const int* __restrict__ eidx,
                           int D, float* __restrict__ S, int* __restrict__ flags,
-                          int ntiles) {
+                          int ntiles, size_t ss) {
+  const int st = blockIdx.y;  // the stream
+  x += (size_t)st * C * N;
+  if (pk != nullptr) pk += (size_t)st * N;
+  peak += (size_t)st * D;
+  eidx += st;
+  S += st * ss;
+  flags = reinterpret_cast<int*>(reinterpret_cast<float*>(flags) + st * ss);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < ntiles) flags[i] = 0;
   if (i >= D + N) return;
@@ -104,8 +121,13 @@ __global__ void seq_peaks(const float* __restrict__ x, int C, int N,
 
 __global__ void window_max(const float* __restrict__ S, int N, int D, float thr,
                            float* __restrict__ W, float* __restrict__ R,
-                           int* __restrict__ flags) {
+                           int* __restrict__ flags, size_t ss) {
   extern __shared__ float s[];  // WT + D
+  const size_t so = blockIdx.y * ss;  // the stream's scratch
+  S += so;
+  W += so;
+  R += so;
+  flags = reinterpret_cast<int*>(reinterpret_cast<float*>(flags) + so);
   const int k0 = blockIdx.x * WT;
   for (int i = threadIdx.x; i < WT + D; i += blockDim.x) {
     int g = k0 + i;
@@ -209,15 +231,26 @@ __device__ __forceinline__ float walk_tile(Env& e, const float* sW,
 // tabT/tabC: T (held at T[M] past M) and coef (1 past M), MP >= M + 5
 // floats each, a multiple of 4. W, R, gain: NP = ntiles * TS floats each
 // (16-byte aligned). unit[t] = 1 marks a tile whose gains are all 1 (not
-// written to gain).
+// written to gain). Block b walks stream b: its W, R, flags, gain and unit
+// lie ss floats after stream b - 1's, its state 4 floats.
 __global__ void __launch_bounds__(64, 1)
     gain_walk(const float* __restrict__ W, const float* __restrict__ R,
               const int* __restrict__ flags, int N,
               const float* __restrict__ tabT, const float* __restrict__ tabC,
               int M, int A, int MP, const float* __restrict__ st_in, float thr,
               float* __restrict__ gain, int* __restrict__ unit,
-              float* __restrict__ st_out) {
+              float* __restrict__ st_out, size_t ss) {
   extern __shared__ __align__(16) float sm[];
+  {
+    const size_t so = blockIdx.x * ss;  // the stream's scratch and state
+    W += so;
+    R += so;
+    gain += so;
+    flags = reinterpret_cast<const int*>(reinterpret_cast<const float*>(flags) + so);
+    unit = reinterpret_cast<int*>(reinterpret_cast<float*>(unit) + so);
+    st_in += 4 * blockIdx.x;
+    st_out += 4 * blockIdx.x;
+  }
   float* sC = sm;  // first: its addresses are immediate offsets
   float* sT = sm + MP;
   float* ring = sT + MP;  // [NS][W | R | G][TS]
@@ -353,7 +386,19 @@ __global__ void apply_quantize(const float* __restrict__ x, int C, int N,
                                float lo, float hi, int bits, void* __restrict__ out,
                                float* __restrict__ delay_out,
                                float* __restrict__ peak_out,
-                               int* __restrict__ eidx_out) {
+                               int* __restrict__ eidx_out, size_t ss) {
+  const int st = blockIdx.y;  // the stream
+  x += (size_t)st * C * N;
+  delay += (size_t)st * C * D;
+  eidx += st;
+  gain += st * ss;
+  unit = reinterpret_cast<const int*>(reinterpret_cast<const float*>(unit) + st * ss);
+  S += st * ss;
+  out = bits == 16 ? (void*)(static_cast<int16_t*>(out) + (size_t)st * N * C)
+                   : (void*)(static_cast<int32_t*>(out) + (size_t)st * N * C);
+  delay_out += (size_t)st * C * D;
+  peak_out += (size_t)st * D;
+  eidx_out += st;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int idx = *eidx;
   const int new_idx = (idx + N) % D;
@@ -381,18 +426,25 @@ int walk_smem(int MP) {
   return (2 * MP + NS * 3 * TS + TS) * 4 + (2 * NS + 1) * 8 + NS * 4;
 }
 
+// scratch floats a stream takes: W, R and gain (NP = ntiles * TS each), S
+// (D + N), flags and unit (ntiles each), rounded up to 16 bytes
+// (dsp/limiter.k3_scratch)
+size_t stream_scratch(int N, int D) {
+  const size_t ntiles = (N + TS - 1) / TS;
+  return (3 * ntiles * TS + D + N + 2 * ntiles + 3) / 4 * 4;
+}
+
 }  // namespace
 
-// x: [C, N] planar mix; pk: [N] the true-peak meter's peaks (K9), or null
-// for sample peaks; delay: [C, D]; peak: [D]; eidx: int[1];
-// st_in/st_out: float[4] envelope state; tabT/tabC: walk tables (MP floats
-// each, dsp/limiter.walk_tables, padded); scratch:
-// float[3 NP + D + N + 2 ntiles], NP = ntiles * TS, ntiles = ceil(N / TS),
-// 16-byte aligned;
-// out: [N, C] int16 (bits 16) or int32; delay_out [C, D]; peak_out [D];
-// eidx_out int[1].
-extern "C" int iamf_k3_limiter(const void* x, int C, int N, const void* pk,
-                               const void* delay,
+// Every array has a leading axis of S streams: x: [S, C, N] planar mix;
+// pk: [S, N] the true-peak meter's peaks (K9), or null for sample peaks;
+// delay: [S, C, D]; peak: [S, D]; eidx: int[S]; st_in/st_out: float[S, 4]
+// envelope state; tabT/tabC: walk tables shared by the streams (MP floats
+// each, dsp/limiter.walk_tables, padded); scratch: float[S *
+// stream_scratch(N, D)], 16-byte aligned; out: [S, N, C] int16 (bits 16)
+// or int32; delay_out [S, C, D]; peak_out [S, D]; eidx_out int[S].
+extern "C" int iamf_k3_limiter(const void* x, int nstreams, int C, int N,
+                               const void* pk, const void* delay,
                                const void* peak, const void* eidx, int D,
                                const void* st_in, float thr, const void* tabT,
                                const void* tabC, int M, int A, int MP, int bits,
@@ -400,8 +452,11 @@ extern "C" int iamf_k3_limiter(const void* x, int C, int N, const void* pk,
                                void* peak_out, void* eidx_out, void* st_out,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nstreams < 1 || nstreams > 65535 || C < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
   const int ntiles = (N + TS - 1) / TS;
   const size_t NP = (size_t)ntiles * TS;
+  const size_t ss = stream_scratch(N, D);
   float* W = static_cast<float*>(scratch);
   float* R = W + NP;
   float* gain = R + NP;
@@ -411,23 +466,23 @@ extern "C" int iamf_k3_limiter(const void* x, int C, int N, const void* pk,
   const float scale = (float)(1ll << (bits - 1));
   const float lo = -scale;
   const float hi = (float)((1ll << (bits - 1)) - 1);
-  seq_peaks<<<(D + N + 255) / 256, 256, 0, s>>>(
+  seq_peaks<<<dim3((D + N + 255) / 256, nstreams), 256, 0, s>>>(
       (const float*)x, C, N, (const float*)pk, (const float*)peak,
-      (const int*)eidx, D, S, flags, ntiles);
-  window_max<<<(N + WT - 1) / WT, WT, (WT + D) * sizeof(float), s>>>(
-      S, N, D, thr, W, R, flags);
+      (const int*)eidx, D, S, flags, ntiles, ss);
+  window_max<<<dim3((N + WT - 1) / WT, nstreams), WT,
+               (WT + D) * sizeof(float), s>>>(S, N, D, thr, W, R, flags, ss);
   const int smem = walk_smem(MP);
   cudaError_t err = cudaFuncSetAttribute(
       gain_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  gain_walk<<<1, 64, smem, s>>>(W, R, flags, N, (const float*)tabT,
-                                (const float*)tabC, M, A, MP,
-                                (const float*)st_in, thr, gain, unit,
-                                (float*)st_out);
+  gain_walk<<<nstreams, 64, smem, s>>>(W, R, flags, N, (const float*)tabT,
+                                       (const float*)tabC, M, A, MP,
+                                       (const float*)st_in, thr, gain, unit,
+                                       (float*)st_out, ss);
   const int work = N * C > C * D ? N * C : C * D;
-  apply_quantize<<<(work + 255) / 256, 256, 0, s>>>(
+  apply_quantize<<<dim3((work + 255) / 256, nstreams), 256, 0, s>>>(
       (const float*)x, C, N, (const float*)delay, (const int*)eidx, D, gain,
       unit, S, scale, lo, hi, bits, out, (float*)delay_out, (float*)peak_out,
-      (int*)eidx_out);
+      (int*)eidx_out, ss);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// K9: the limiter's true-peak meter for one decode batch.
+// K9: the limiter's true-peak meter for one decode batch of S streams.
 //
 // Replaces the true-peak branch of iamf_tpu/dsp/limiter.py input_peaks
 // (jitted inside the limiter block of core/pipeline.py decode_frames): a
@@ -8,7 +8,10 @@
 //   peaks[t] = max over c, p of |sum_i h[p][i] x[c, t - i]|,
 // x[c, t - i] reaching into hist (oldest first) for t < i; hist' = the last
 // 11 samples of hist ++ x. The peaks replace K3's sample peaks max_c |x|
-// (csrc/limiter.cu seq_peaks takes them as a pointer).
+// (csrc/limiter.cu seq_peaks takes them as a pointer). With S streams
+// (the multi-stream server's bucket, core/serving.py) every array has a
+// leading stream axis, the peaks are a maximum over one stream's channels,
+// and blockIdx.y is the stream: a stream's result does not depend on S.
 //
 // What bounds it: at C = 12, N = 122,880 the FIR is 2 x 48 x C x N = 141.6
 // MFLOP (2.1 us at 67 TFLOP/s, which counts an FMA as two) against 5.9 MB
@@ -142,6 +145,10 @@ __global__ void __launch_bounds__(32 * WPC)
 k9_truepeak(const float* __restrict__ x, const float* __restrict__ hist,
             int C, int N, float* __restrict__ peaks,
             float* __restrict__ hist_out) {
+  x += (size_t)blockIdx.y * C * N;  // the stream's rows
+  hist += (size_t)blockIdx.y * C * HIST;
+  peaks += (size_t)blockIdx.y * N;
+  hist_out += (size_t)blockIdx.y * C * HIST;
   const int G = groups(C), tpg = 32 / G, ts = SPT * tpg;  // a warp's tile
   const int lane = threadIdx.x & 31, g = lane / tpg;
   const int tile = blockIdx.x * WPC + (threadIdx.x >> 5);
@@ -179,14 +186,15 @@ k9_truepeak(const float* __restrict__ x, const float* __restrict__ hist,
 
 }  // namespace
 
-// x: [C, N] float32; hist: [C, 11] (oldest first); peaks: [N];
-// hist_out: [C, 11] (must not alias hist).
-extern "C" int iamf_k9_truepeak(const void* x, const void* hist, int C, int N,
-                                void* peaks, void* hist_out, void* stream) {
+// x: [S, C, N] float32; hist: [S, C, 11] (oldest first); peaks: [S, N];
+// hist_out: [S, C, 11] (must not alias hist).
+extern "C" int iamf_k9_truepeak(const void* x, const void* hist, int S,
+                                int C, int N, void* peaks, void* hist_out,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > 65535 || C < 1 || N < 1) return (int)cudaErrorInvalidValue;
   const int per_cta = WPC * 32 / groups(C) * SPT;
-  k9_truepeak<<<(N + per_cta - 1) / per_cta, 32 * WPC, 0, s>>>(
+  k9_truepeak<<<dim3((N + per_cta - 1) / per_cta, S), 32 * WPC, 0, s>>>(
       (const float*)x, (const float*)hist, C, N, (float*)peaks,
       (float*)hist_out);
   return (int)cudaGetLastError();

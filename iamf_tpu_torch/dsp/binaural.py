@@ -12,12 +12,14 @@ ov [2, taps-1] (iamf_tpu/core/pipeline.py:267-320):
     y[e, t]   = sum_c sum_k h[e, c, k] * x[c, t - k]  (+ ov[e, t], t < taps-1)
     ov'[e, j] = sum_c sum_{k > j} h[e, c, k] * x[c, N + j - k]
 
-with x zero before 0 and after N. ``hrtf_conv`` runs K8
+with x zero before 0 and after N. A batch holds S streams that share the
+bank (the multi-stream server's bucket, core/serving.py; S = 1 for one
+decoder): x [S, C, N], ov [S, 2, taps-1], y [S, 2, N]. ``hrtf_conv`` runs K8
 (csrc/hrtf_conv.cu, an overlap-save FFT convolution written by hand, its
 tables from ``k8_spectra`` and ``k8_twiddles``) on a CUDA tensor and the
 plain twin on a CPU tensor: the JAX package's segmented overlap-add (rfft
 at batch_seg_plan's length, a [2, C] complex contraction, irfft, each
-segment's tail added into the next one).
+segment's tail added into the next one), stream by stream.
 
 The serial per-frame HRTFRenderer is not ported (ROADMAP.md §1 item 12).
 """
@@ -66,7 +68,7 @@ CHANNEL_DIRECTIONS = {
     CH.HBR: (-135.0, 35.0),
 }
 
-K8 = Kernel("iamf_k8_hrtf_conv", [P, I, I, P, P, I, I, I, P, P, P])
+K8 = Kernel("iamf_k8_hrtf_conv", [P, I, I, I, P, P, I, I, I, P, P, P])
 K8_FFT = 1024   # FFT length of K8's blocks (csrc/hrtf_conv.cu F)
 K8_PART = 512   # K8's longest filter part (MAX_PART)
 
@@ -294,9 +296,17 @@ def hrir_for_batch(bank: np.ndarray, B: int, T: int, device,
 
 
 def hrtf_conv_plain(hrir: Hrir, x, overlap):
-    """Plain twin: the JAX package's segmented overlap-add over x [C, N]
-    (N a multiple of hrir.seg). Returns (y [2, N], overlap' [2, taps-1])."""
+    """Plain twin: the JAX package's segmented overlap-add over x [S, C, N]
+    (N a multiple of hrir.seg), stream by stream. Returns (y [S, 2, N],
+    overlap' [S, 2, taps-1])."""
     K8.note_plain(x)
+    outs = [_conv_stream(hrir, x[s], overlap[s]) for s in range(x.shape[0])]
+    return (torch.stack([y for y, _ in outs]),
+            torch.stack([o for _, o in outs]))
+
+
+def _conv_stream(hrir: Hrir, x, overlap):
+    """hrtf_conv_plain on one stream: x [C, N], overlap [2, taps-1]."""
     C, N = x.shape
     seg, n, taps = hrir.seg, hrir.n_fft, hrir.taps
     S = N // seg
@@ -312,29 +322,30 @@ def hrtf_conv_plain(hrir: Hrir, x, overlap):
 
 
 def hrtf_conv_cuda(hrir: Hrir, x, overlap):
-    """K8 on the card: x [C, N] float32 -> (y [2, N], overlap')."""
+    """K8 on the card: x [S, C, N] float32 -> (y [S, 2, N], overlap'), the S
+    streams in one launch."""
     bank = hrir.bank
-    C, N = x.shape
+    S, C, N = x.shape
     taps = bank.shape[2]
     if (x.dtype != torch.float32 or bank.dtype != torch.float32
             or tuple(bank.shape[:2]) != (2, C) or taps < 2
-            or tuple(overlap.shape) != (2, taps - 1)):
+            or tuple(overlap.shape) != (S, 2, taps - 1)):
         raise ValueError(
-            f"K8 takes float32 x [C, N], bank [2, C, taps >= 2] and overlap "
-            f"[2, taps-1]; got x {x.dtype} {list(x.shape)}, bank "
+            f"K8 takes float32 x [S, C, N], bank [2, C, taps >= 2] and "
+            f"overlap [S, 2, taps-1]; got x {x.dtype} {list(x.shape)}, bank "
             f"{bank.dtype} {list(bank.shape)}, overlap {list(overlap.shape)}")
     parts, lp = k8_partition(taps)
     x = x.contiguous()
     overlap = overlap.contiguous().to(torch.float32)
-    y = torch.empty((2, N), dtype=torch.float32, device=x.device)
-    ov = torch.empty((2, taps - 1), dtype=torch.float32, device=x.device)
-    K8(x, C, N, hrir.pq, hrir.tw, taps, parts, lp, overlap, y, ov)
+    y = torch.empty((S, 2, N), dtype=torch.float32, device=x.device)
+    ov = torch.empty((S, 2, taps - 1), dtype=torch.float32, device=x.device)
+    K8(x, S, C, N, hrir.pq, hrir.tw, taps, parts, lp, overlap, y, ov)
     return y, ov
 
 
 def hrtf_conv(hrir: Hrir, x, overlap):
-    """Fold a bed x [C, N] to two ears with the overlap carry: K8 for a
-    CUDA tensor, the plain twin for a CPU tensor."""
+    """Fold the beds x [S, C, N] to two ears with the overlap carry: K8
+    for a CUDA tensor, the plain twin for a CPU tensor."""
     if x.is_cuda:
         return hrtf_conv_cuda(hrir, x, overlap)
     return hrtf_conv_plain(hrir, x, overlap)

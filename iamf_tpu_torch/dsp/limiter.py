@@ -28,13 +28,20 @@ carried across batches. On a CUDA tensor the hand-written kernel K9
 (csrc/truepeak.cu) meters and K3 reads its peaks; on a CPU tensor the plain
 twin ``truepeak_plain`` does. The rest of the limiter is unchanged.
 
+Streams: the batch is x [S, C, N], S streams of one LimiterConfig (the
+multi-stream server's bucket, core/serving.py; S = 1 for one decoder), and
+every state tensor has the leading stream axis. The peak is a maximum over
+one stream's channels, so each stream walks its own envelope: K3 and K9
+take the S streams in one launch, the twins run them one by one.
+``init_state`` gives one stream's state without the axis.
+
 State (a dict of tensors; core/pipeline.py carries it across batches):
-  env:         float32 [4] = current_gain, target_start_gain,
+  env:         float32 [S, 4] = current_gain, target_start_gain,
                target_end_gain, current_tc (-1 = idle)
-  delay_data:  [C, D] delay line;  peak_data: [D] peak ring
-  entry_index: int32 [1], ring slot of the oldest entry
-  tp_hist:     [C, 11] the meter's last input samples, oldest first (true
-               peak only)
+  delay_data:  [S, C, D] delay line;  peak_data: [S, D] peak ring
+  entry_index: int32 [S, 1], ring slot of the oldest entry
+  tp_hist:     [S, C, 11] the meter's last input samples, oldest first
+               (true peak only)
 """
 
 from __future__ import annotations
@@ -60,9 +67,9 @@ TP_TAPS = 12     # taps per phase (48-tap prototype)
 TP_HIST = TP_TAPS - 1
 
 K3 = Kernel("iamf_k3_limiter",
-            [P, I, I, P, P, P, P, I, P, F, P, P, I, I, I, I, P, P, P, P, P,
-             P])
-K9 = Kernel("iamf_k9_truepeak", [P, P, I, I, P, P])
+            [P, I, I, I, P, P, P, P, I, P, F, P, P, I, I, I, I, P, P, P, P,
+             P, P])
+K9 = Kernel("iamf_k9_truepeak", [P, P, I, I, I, P, P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,48 +123,51 @@ def init_state(cfg: LimiterConfig, device) -> dict:
 
 
 def truepeak_plain(x, hist):
-    """Plain twin of K9: x [C, T], hist [C, 11] -> (peaks [T], hist').
-    win[c, t, i] = x[c, t - i] (hist[:, -1] the newest sample before x);
-    each phase sums its taps in order i = 0..11, as K9 does."""
+    """Plain twin of K9: x [S, C, T], hist [S, C, 11] -> (peaks [S, T],
+    hist'). win[s, c, t, i] = x[s, c, t - i] (hist[..., -1] the newest
+    sample before x); each phase sums its taps in order i = 0..11, as K9
+    does; every operation is elementwise or a maximum, so a stream's peaks
+    do not depend on the others."""
     K9.note_plain(x)
-    T = x.shape[1]
+    S, C, T = x.shape
     h = torch.from_numpy(truepeak_filters()).to(x.device)
-    xc = torch.cat([hist, x], dim=1)
-    acc = x.new_zeros((x.shape[0], TP_PHASES, T))
+    xc = torch.cat([hist, x], dim=2)
+    acc = x.new_zeros((S, C, TP_PHASES, T))
     for i in range(TP_TAPS):
-        acc = acc + h[None, :, i, None] * xc[:, None, TP_HIST - i:
-                                             TP_HIST - i + T]
-    return torch.amax(acc.abs(), dim=(0, 1)), xc[:, -TP_HIST:]
+        acc = acc + h[None, None, :, i, None] * xc[:, :, None, TP_HIST - i:
+                                                   TP_HIST - i + T]
+    return torch.amax(acc.abs(), dim=(1, 2)), xc[..., -TP_HIST:]
 
 
 def truepeak_cuda(x, hist):
-    """K9 on the card: x [C, T] float32, hist [C, 11] -> (peaks, hist')."""
-    C, T = x.shape
+    """K9 on the card: x [S, C, T] float32, hist [S, C, 11] -> (peaks
+    [S, T], hist'), the S streams in one launch."""
+    S, C, T = x.shape
     if (x.dtype != torch.float32 or hist.dtype != torch.float32
-            or tuple(hist.shape) != (C, TP_HIST) or T < 1):
-        raise ValueError(f"K9 takes float32 x [C, T >= 1] and hist "
-                         f"[C, {TP_HIST}]; got {x.dtype} {list(x.shape)}, "
+            or tuple(hist.shape) != (S, C, TP_HIST) or T < 1):
+        raise ValueError(f"K9 takes float32 x [S, C, T >= 1] and hist "
+                         f"[S, C, {TP_HIST}]; got {x.dtype} {list(x.shape)}, "
                          f"{hist.dtype} {list(hist.shape)}")
     x, hist = x.contiguous(), hist.contiguous()
     if x.data_ptr() % 16:  # K9 stages aligned rows with float4 loads
         x = x.clone()
-    peaks = torch.empty((T,), dtype=torch.float32, device=x.device)
-    hist_out = torch.empty((C, TP_HIST), dtype=torch.float32,
+    peaks = torch.empty((S, T), dtype=torch.float32, device=x.device)
+    hist_out = torch.empty((S, C, TP_HIST), dtype=torch.float32,
                            device=x.device)
-    K9(x, hist, C, T, peaks, hist_out)
+    K9(x, hist, S, C, T, peaks, hist_out)
     return peaks, hist_out
 
 
 def input_peaks(cfg: LimiterConfig, state: dict, x):
     """Per-sample magnitudes feeding the peak ring (process_block
-    :150-166): max_c |x| in sample-peak mode, the true-peak meter's in
-    true-peak mode, whose history moves forward. x: [C, T] -> (peaks [T],
-    state'). The twin's route (limit_plain); on the card limit_quantize_cuda
-    runs K9 itself."""
+    :150-166) of one stream: max_c |x| in sample-peak mode, the true-peak
+    meter's in true-peak mode, whose history moves forward. x: [C, T] ->
+    (peaks [T], state'). The twin's route (limit_plain); on the card
+    limit_quantize_cuda runs K9 itself."""
     if not cfg.true_peak:
         return torch.amax(torch.abs(x), dim=0), state
-    peaks, hist = truepeak_plain(x, state["tp_hist"])
-    return peaks, dict(state, tp_hist=hist)
+    peaks, hist = truepeak_plain(x[None], state["tp_hist"][None])
+    return peaks[0], dict(state, tp_hist=hist[0])
 
 
 def _curve_accel(v):
@@ -344,8 +354,17 @@ def _scan(cfg: LimiterConfig, state: dict, x, peaks_in):
 
 def limit_plain(cfg: LimiterConfig, state: dict, x, frame: int):
     """Plain twin of the limiter: the reference's fast/slow structure over
-    x [C, N] (N a multiple of `frame`). Returns (state', limited [C, N])."""
+    x [S, C, N] (N a multiple of `frame`), stream by stream. Returns
+    (state', limited [S, C, N])."""
     K3.note_plain(x)
+    outs = [_limit_stream(cfg, {k: v[s] for k, v in state.items()}, x[s],
+                          frame) for s in range(x.shape[0])]
+    return ({k: torch.stack([st[k] for st, _ in outs]) for k in state},
+            torch.stack([y for _, y in outs]))
+
+
+def _limit_stream(cfg: LimiterConfig, state: dict, x, frame: int):
+    """limit_plain on one stream: x [C, N], state without the axis."""
     peaks_in, state = input_peaks(cfg, state, x)
     if _can_fast(cfg, state, peaks_in):
         return fast_pass(cfg, state, x, peaks_in)
@@ -358,18 +377,28 @@ def limit_plain(cfg: LimiterConfig, state: dict, x, frame: int):
     return state, torch.cat(outs, dim=1)
 
 
+def k3_scratch(N: int, D: int) -> int:
+    """Scratch floats K3 takes a stream (csrc/limiter.cu stream_scratch):
+    W, R and gains (NP = ntiles * WALK_TILE each), the peak sequence
+    (D + N), tile flags and unit marks (ntiles each), rounded up to 16
+    bytes."""
+    ntiles = -(-N // WALK_TILE)
+    return -(-(3 * ntiles * WALK_TILE + D + N + 2 * ntiles) // 4) * 4
+
+
 def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
-    """K3 on the card: x [C, N] -> (state', pcm [N, C] int). In
-    true-peak mode K9 meters x first and K3 reads its peaks."""
-    C, N = x.shape
+    """K3 on the card: x [S, C, N] -> (state', pcm [S, N, C] int), the S
+    streams in one launch, one gain walk a stream. In true-peak mode K9
+    meters x first and K3 reads its peaks."""
+    S, C, N = x.shape
     D = cfg.delay_size
     if C != cfg.channels or x.dtype != torch.float32 or N < 1:
-        raise ValueError(f"K3 takes float32 [{cfg.channels}, N >= 1], got "
-                         f"{x.dtype} {list(x.shape)}")
+        raise ValueError(f"K3 takes float32 [S, {cfg.channels}, N >= 1], "
+                         f"got {x.dtype} {list(x.shape)}")
     if bits not in (16, 24, 32):
         raise ValueError(f"bits {bits}")
-    shapes = {"env": (4,), "delay_data": (C, D), "peak_data": (D,),
-              "entry_index": (1,)}
+    shapes = {"env": (S, 4), "delay_data": (S, C, D), "peak_data": (S, D),
+              "entry_index": (S, 1)}
     if any(tuple(state[k].shape) != s for k, s in shapes.items()):
         raise ValueError(f"K3 limiter state shapes: want {shapes}, got "
                          f"{ {k: tuple(state[k].shape) for k in shapes} }")
@@ -383,19 +412,13 @@ def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     tab_t, tab_c, M, A, mp = _device_tables(cfg, dev)
-    ntiles = -(-N // WALK_TILE)
-    scratch = torch.empty((3 * ntiles * WALK_TILE + D + N + 2 * ntiles,),
-                          **f32)
-    out = torch.empty((N, C), dtype=torch.int16 if bits == 16 else torch.int32,
+    scratch = torch.empty((S * k3_scratch(N, D),), **f32)
+    out = torch.empty((S, N, C),
+                      dtype=torch.int16 if bits == 16 else torch.int32,
                       device=dev)
-    new = {
-        "env": torch.empty((4,), **f32),
-        "delay_data": torch.empty((C, D), **f32),
-        "peak_data": torch.empty((D,), **f32),
-        "entry_index": torch.empty((1,), dtype=torch.int32, device=dev),
-        **tp,
-    }
-    K3(x, C, N, peaks, state["delay_data"], state["peak_data"],
+    new = {k: torch.empty_like(v) for k, v in state.items()}
+    new.update(tp)
+    K3(x, S, C, N, peaks, state["delay_data"], state["peak_data"],
        state["entry_index"], D, state["env"], cfg.linear_threshold,
        tab_t, tab_c, M, A, mp, bits, scratch, out, new["delay_data"],
        new["peak_data"], new["entry_index"], new["env"])
@@ -404,9 +427,10 @@ def limit_quantize_cuda(cfg: LimiterConfig, state: dict, x, bits: int):
 
 def limit_quantize(cfg: LimiterConfig, state: dict, x, bits: int,
                    frame: int):
-    """Limiter + quantize/interleave for one batch: x [C, N] float32 ->
-    (state', pcm [N, C] int16/int32). CUDA tensors run K3; CPU tensors run
-    the plain twin (limit_plain, then quantize_interleave)."""
+    """Limiter + quantize/interleave for one batch of S streams: x [S, C, N]
+    float32 -> (state', pcm [S, N, C] int16/int32). CUDA tensors run K3;
+    CPU tensors run the plain twin (limit_plain, then
+    quantize_interleave)."""
     if x.is_cuda:
         return limit_quantize_cuda(cfg, state, x, bits)
     state, y = limit_plain(cfg, state, x, frame)

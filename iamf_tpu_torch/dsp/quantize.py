@@ -14,7 +14,8 @@ import torch
 
 
 def quantize_interleave(x, bits: int):
-    """x: [C, T] float32 -> [T, C] int16 (bits=16) or int32 (24/32)."""
+    """x: [..., C, T] float32 -> [..., T, C] int16 (bits=16) or int32
+    (24/32)."""
     scale = float(2 ** (bits - 1))
     lo = -(2 ** (bits - 1))
     hi = 2 ** (bits - 1) - 1
@@ -22,4 +23,4 @@ def quantize_interleave(x, bits: int):
     # clamp-then-round == round-then-clip for these bounds
     v = torch.round(torch.clamp(v, lo, hi))
     dtype = torch.int16 if bits == 16 else torch.int32
-    return v.to(dtype).T.contiguous()
+    return v.to(dtype).transpose(-1, -2).contiguous()

@@ -1,10 +1,12 @@
 """Stream builders for the smoke run and the port's tests: complete IAMF
 streams made with this package's muxer (tools/builder.py).
 
-The PCM builders are copies of the builders of the same names in
-tests/vectors.py, on this package's builder and constants: the same
-arguments give byte-identical streams (tests/test_torch_standalone.py holds
-them to it).
+The PCM builders and the MP4/fMP4 wrappers (split_into_units, build_mp4,
+build_fmp4, on this package's tools/mp4builder.py) are copies of the
+functions of the same names in tests/vectors.py, on this package's builder
+and constants: the same arguments give byte-identical streams
+(tests/test_torch_standalone.py and tests/test_torch_mp4.py hold them to
+it).
 
 The AAC-LC and FLAC builders write their codec frames by hand, since no
 encoder for either ships with the repo: AAC-LC raw data blocks (ISO/IEC
@@ -24,7 +26,8 @@ import numpy as np
 from ..constants import (
     LAYOUT_CHANNELS_CODEC, ChannelLayout, ElementType, ParameterType,
 )
-from . import builder
+from ..obu import parser
+from . import builder, mp4builder
 
 
 def sine_pcm(n: int, channels: int, rate: int = 48000, amp: float = 0.5,
@@ -170,6 +173,105 @@ def build_pcm_51_stream(n_frames: int = 8, amp: float = 0.5, **kw):
     return build_pcm_layout_stream(
         ChannelLayout.L510, n_frames=n_frames, amp=amp, **kw
     )
+
+
+def build_scalable_pcm_stream(
+    n_frames: int = 8,
+    frame_size: int = 960,
+    sample_size: int = 16,
+    rate: int = 48000,
+    amp: float = 0.4,
+    demix_modes=None,  # per-frame demixing_mode sequence (param blocks)
+    recon_gains=None,  # per-frame (g_ls, g_rs) Q0.8 recon gains, or None
+    default_demix_mode: int = 1,
+    default_demix_w: int = 0,
+    target_layouts=(1, 0),
+    seed: int = 7,
+    hrm: int = 0,  # headphones_rendering_mode (1 => HRTF conv binaural)
+    layer2_output_gain=None,  # (flags 6-bit, gain q7.8) on the 5.1 layer
+) -> tuple[bytes, np.ndarray]:
+    """Two-layer scalable channel stream: stereo layer + 5.1 layer.
+
+    Layer 1: 1 coupled substream (L2,R2). Layer 2 adds 3 substreams
+    (coupled L5/R5 + mono C + mono LFE); SL5/SR5 are demixed by the decoder
+    via the S3->5 chain, exercising demix modes, the w-index walk, and
+    recon-gain RMS smoothing.
+    """
+    nch = 6  # L2 R2 L5 R5 C LFE (codec order)
+    total = n_frames * frame_size
+    pcm = sine_pcm(total, nch, rate, amp=amp, bits=sample_size, seed=seed)
+
+    out = bytearray()
+    out += builder.sequence_header_obu()
+    out += builder.codec_config_obu(
+        1, b"ipcm", frame_size, 0, builder.pcm_decoder_conf(sample_size, rate)
+    )
+    demix = builder.ParamDefinition(
+        id=998, rate=rate, mode=0, duration=frame_size,
+        constant_segment_interval=frame_size,
+    )
+    recon = builder.ParamDefinition(
+        id=997, rate=rate, mode=0, duration=frame_size,
+        constant_segment_interval=frame_size,
+    )
+    out += builder.audio_element_obu(
+        element_id=1,
+        element_type=ElementType.CHANNEL_BASED,
+        codec_config_id=1,
+        substream_ids=[0, 1, 2, 3],
+        layers=[
+            builder.LayerSpec(ChannelLayout.STEREO, 1, 1),
+            builder.LayerSpec(
+                ChannelLayout.L510, 3, 1, recon_gain_flag=True,
+                **(dict(output_gain_flags=layer2_output_gain[0],
+                        output_gain_q78=layer2_output_gain[1])
+                   if layer2_output_gain else {}),
+            ),
+        ],
+        demix_param=demix,
+        recon_param=recon if recon_gains is not None else None,
+        default_demix_mode=default_demix_mode,
+        default_demix_w=default_demix_w,
+    )
+    out += builder.mix_presentation_obu(
+        mix_presentation_id=10,
+        elements=[
+            builder.MixElementSpec(
+                element_id=1, mix_gain_param=builder.ParamDefinition(id=100),
+                headphones_rendering_mode=hrm,
+            )
+        ],
+        layouts=[builder.LayoutSpec(sound_system=ss) for ss in target_layouts],
+    )
+    for f in range(n_frames):
+        if demix_modes is not None:
+            out += builder.parameter_block_obu(
+                998, ParameterType.DEMIXING, duration=frame_size,
+                constant_segment_interval=frame_size, mode=0,
+                segments=[{"mode": demix_modes[f % len(demix_modes)]}],
+            )
+        if recon_gains is not None:
+            g = recon_gains[f % len(recon_gains)]
+            # flags: RE_LS|RE_RS (bits 3,4); layer 1 (bit 1) present
+            out += builder.parameter_block_obu(
+                997, ParameterType.RECON_GAIN, duration=frame_size,
+                constant_segment_interval=frame_size, mode=0,
+                segments=[{"entries": [None, (0b11000, list(g))]}],
+            )
+        frame = pcm[f * frame_size : (f + 1) * frame_size]
+        out += builder.audio_frame_obu(
+            0, builder.pack_pcm_frame(frame[:, 0:2], sample_size)
+        )
+        out += builder.audio_frame_obu(
+            1, builder.pack_pcm_frame(frame[:, 2:4], sample_size)
+        )
+        out += builder.audio_frame_obu(
+            2, builder.pack_pcm_frame(frame[:, 4:5], sample_size)
+        )
+        out += builder.audio_frame_obu(
+            3, builder.pack_pcm_frame(frame[:, 5:6], sample_size)
+        )
+    return bytes(out), pcm
 
 
 def build_ambisonics_pcm_stream(
@@ -630,3 +732,58 @@ def build_flac_layout_stream(layout: int,
                 s, flac_frame(frame[:, ch:ch + want], f))
             ch += want
     return bytes(out), pcm
+
+
+def split_into_units(stream: bytes) -> tuple[bytes, list[bytes]]:
+    """Split a bitstream into (descriptor OBUs, [temporal unit bytes]).
+
+    A temporal unit = parameter blocks + one audio frame per substream; the
+    unit closes when the substream count for the element is reached.
+    """
+    off = parser.find_sequence_header(stream)
+    descriptors = bytearray()
+    units: list[bytes] = []
+    nb_substreams = 0
+    cur = bytearray()
+    frames_in_unit = 0
+    pos = off
+    while pos < len(stream):
+        obu = parser.split_obu(stream, pos)
+        if obu is None:
+            break
+        raw = stream[pos : pos + obu.size]
+        if obu.is_descriptor:
+            descriptors += raw
+            if obu.type == 1:  # audio element: count substreams
+                el = parser.parse_audio_element(obu)
+                nb_substreams = el.nb_substreams
+        else:
+            cur += raw
+            if obu.is_audio_frame:
+                frames_in_unit += 1
+                if frames_in_unit >= nb_substreams:
+                    units.append(bytes(cur))
+                    cur = bytearray()
+                    frames_in_unit = 0
+        pos += obu.size
+    if cur:
+        units.append(bytes(cur))
+    return bytes(descriptors), units
+
+
+def build_mp4(stream: bytes, frame_size: int = 960, media_time: int = 0,
+              roll_distance: int = None) -> bytes:
+    descriptors, units = split_into_units(stream)
+    return mp4builder.mux_iamf_mp4(
+        descriptors, units, frame_size=frame_size, media_time=media_time,
+        roll_distance=roll_distance,
+    )
+
+
+def build_fmp4(stream: bytes, frame_size: int = 960, fragments: int = 2,
+               base_data_offset: bool = False) -> bytes:
+    descriptors, units = split_into_units(stream)
+    return mp4builder.mux_iamf_fmp4(
+        descriptors, units, frame_size=frame_size, fragments=fragments,
+        base_data_offset=base_data_offset,
+    )

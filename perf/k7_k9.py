@@ -87,7 +87,7 @@ def times(cs, tree: str) -> None:
             return limiter.truepeak_cuda(xs[0], hist)
 
         out[f"k9_c{C}"] = [t.cpu() for t in k9()]
-        _time(cs, f"{name} K9 [C={C}, N={xs[0].shape[1]}]", k9, card)
+        _time(cs, f"{name} K9 [C={C}, N={xs[0].shape[-1]}]", k9, card)
     save(out, "k7_k9", tree)
 
 

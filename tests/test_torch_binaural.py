@@ -104,18 +104,18 @@ def test_twin_matches_direct_convolution(layout, B):
     rng = np.random.RandomState(5)
     n = 3 * B * T
     x = (rng.randn(C, n) * 0.3).astype(np.float32)
-    ov = torch.zeros(2, bank.shape[2] - 1)
+    ov = torch.zeros(1, 2, bank.shape[2] - 1)
     outs = []
     for b in range(3):
-        xb = torch.from_numpy(x[:, b * B * T:(b + 1) * B * T])
+        xb = torch.from_numpy(x[None, :, b * B * T:(b + 1) * B * T])
         y, ov = binaural.hrtf_conv(hrir, xb, ov)
-        outs.append(y.numpy())
+        outs.append(y[0].numpy())
     got = np.concatenate(outs, axis=1)
     err = np.abs(got - _direct(x, bank, n)).max()
     assert err < 1e-4, err
     # the carry is the convolution's spill past the last batch
     tail = _direct(np.pad(x, ((0, 0), (0, 255))), bank, n + 255)[:, n:]
-    assert np.abs(ov.numpy() - tail).max() < 1e-4
+    assert np.abs(ov[0].numpy() - tail).max() < 1e-4
 
 
 @pytest.mark.parametrize("name", ["m2b_51_hrm1", "two_elements_hrm1"])
@@ -151,18 +151,19 @@ def test_decode_frames_hrtf_matches_jax(name):
             carry_p = convert.pipe_carry(carry_j, "cpu")
             for i, ov in carry_p["hrtf"].items():
                 assert float(ov.abs().max()) > 1e-3  # a live overlap
-                assert np.array_equal(ov.numpy(), carry_j["hrtf"][i])
+                assert np.array_equal(ov[0].numpy(), carry_j["hrtf"][i])
         carry_j, pcm_j = jpipe.decode_frames(
             cfg_j, carry_j, params_j, [jnp.asarray(x) for x in xs])
         if carry_p is None:
             continue
         carry_p, pcm_p = ppipe.decode_frames(
-            cfg_p, carry_p, params_p, [torch.from_numpy(x) for x in xs])
+            cfg_p, carry_p, params_p, [torch.from_numpy(x)[None] for x in xs])
+        pcm_p = pcm_p[0]  # the one stream
         pcm_j = np.asarray(pcm_j)
         assert pcm_p.shape == pcm_j.shape == (B * T, 2)
         assert _lsb(pcm_p.numpy(), pcm_j) <= 1, f"batch {bi}"
         for i, ov in carry_p["hrtf"].items():
-            err = np.abs(ov.numpy() - np.asarray(carry_j["hrtf"][i])).max()
+            err = np.abs(ov[0].numpy() - np.asarray(carry_j["hrtf"][i])).max()
             assert err < 1e-4, (bi, i, err)
 
 
@@ -180,7 +181,7 @@ def test_convert_binaural_state():
     carry_p = convert.pipe_carry(carry_j, "cpu")
     assert sorted(carry_p["hrtf"]) == [0, 1]
     for i, v in carry_j["hrtf"].items():
-        assert np.array_equal(carry_p["hrtf"][i].numpy(), np.asarray(v))
+        assert np.array_equal(carry_p["hrtf"][i][0].numpy(), np.asarray(v))
     cfg_p = convert.pipeline_config(jd.cfg)
     params_p = convert.stream_params(plan.stream_params, "cpu", cfg_p)
     ours = ppipe.stream_params(cfg_p, jd.params, 3 * 3, "cpu",
@@ -230,7 +231,8 @@ def test_k8_model_matches_direct_and_twin(C, N):
         hrir = binaural.hrir_for_batch(bank, 1, N, "cpu")
         want, ov_t = _k8_chain(
             bank, torch.from_numpy(x), torch.from_numpy(ov), N,
-            lambda xb, o: binaural.hrtf_conv_plain(hrir, xb, o))
+            lambda xb, o: tuple(t[0] for t in binaural.hrtf_conv_plain(
+                hrir, xb[None], o[None])))
         assert np.abs(got - want).max() < 1e-5
         assert np.abs(ov_m - ov_t).max() < 1e-5
 
@@ -275,3 +277,20 @@ def test_k8_tables():
     F = 1024
     assert np.abs((P + Q) * F - g[0::2].transpose(1, 0, 2)).max() < 1e-5
     assert np.abs((Q - P) * F / 1j - g[1::2].transpose(1, 0, 2)).max() < 1e-5
+
+
+def test_twin_stream_axis_equals_single_streams():
+    """hrtf_conv_plain on beds x [3, C, N] with carries [3, 2, taps-1]
+    (one bank for the bucket) gives each stream its S = 1 call's ears and
+    carry, bit for bit."""
+    bank = binaural.hrir_bank(ChannelLayout.L510)
+    hrir = binaural.hrir_for_batch(bank, 2, T, "cpu")
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy((rng.randn(3, 6, 2 * T) * 0.3).astype(np.float32))
+    ov = torch.from_numpy((rng.randn(3, 2, 255) * 0.1).astype(np.float32))
+    y3, ov3 = binaural.hrtf_conv(hrir, x, ov)
+    assert y3.shape == (3, 2, 2 * T) and ov3.shape == (3, 2, 255)
+    for s in range(3):
+        y1, ov1 = binaural.hrtf_conv(hrir, x[s:s + 1], ov[s:s + 1])
+        assert torch.equal(y3[s:s + 1], y1)
+        assert torch.equal(ov3[s:s + 1], ov1)

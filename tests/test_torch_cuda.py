@@ -121,6 +121,23 @@ def test_k2_matches_plain(dev, case):
         assert (m_d.cpu() - m_c).abs().max() <= tol
 
 
+def one_stream(fn, *args):
+    """fn on one stream: each tensor argument, and each tensor of a state
+    dict, gains the stream axis; each tensor of the result loses it."""
+
+    def add(a):
+        if isinstance(a, dict):
+            return {k: v[None] for k, v in a.items()}
+        return a[None] if isinstance(a, torch.Tensor) else a
+
+    def drop(a):
+        if isinstance(a, dict):
+            return {k: v[0] for k, v in a.items()}
+        return a[0] if isinstance(a, torch.Tensor) else a
+
+    return tuple(map(drop, fn(*map(add, args))))
+
+
 def _k3_chain(dev, cfg, st, xs):
     """K3 and its twin chained over the batches xs from the CPU state st:
     after each batch the int output and the whole state are equal bit for
@@ -128,9 +145,10 @@ def _k3_chain(dev, cfg, st, xs):
     s_d = {k: v.to(dev) for k, v in st.items()}
     for x in xs:
         launches = limiter.K3.launches
-        s_d, q_d = limiter.limit_quantize(cfg, s_d, x.to(dev), 16, 960)
+        s_d, q_d = one_stream(limiter.limit_quantize, cfg, s_d, x.to(dev),
+                              16, 960)
         assert limiter.K3.launches == launches + 1
-        st, q_p = limiter.limit_quantize(cfg, st, x, 16, 960)
+        st, q_p = one_stream(limiter.limit_quantize, cfg, st, x, 16, 960)
         assert torch.equal(q_d.cpu(), q_p)
         assert torch.equal(s_d["env"].cpu().view(torch.int32),
                            st["env"].view(torch.int32))
@@ -159,7 +177,8 @@ def _mid_release(cfg, rng):
     """A twin state 1000 samples after a burst: releasing, no retrigger."""
     x = _noise(rng, cfg.channels, 3000, 0.1)
     x[:, 500:1000] *= 10.0
-    st, _ = limiter.limit_plain(cfg, limiter.init_state(cfg, "cpu"), x, 960)
+    st, _ = one_stream(limiter.limit_plain, cfg,
+                       limiter.init_state(cfg, "cpu"), x, 960)
     tab = limiter.walk_tables(cfg)
     assert tab.T[tab.A] <= float(st["env"][3]) < tab.T[tab.M]
     return st
@@ -229,9 +248,9 @@ def test_k8_matches_plain(dev, C, B):
     for _ in range(2):  # the overlap chained from one call into the next
         x = torch.from_numpy((rng.randn(C, B * T) * 0.3).astype(np.float32))
         launches = binaural.K8.launches
-        y_d, ov_d = binaural.hrtf_conv(hrir_d, x.to(dev), ov_d)
+        y_d, ov_d = one_stream(binaural.hrtf_conv, hrir_d, x.to(dev), ov_d)
         assert binaural.K8.launches == launches + 1
-        y_c, ov_c = binaural.hrtf_conv(hrir_c, x, ov_c)
+        y_c, ov_c = one_stream(binaural.hrtf_conv, hrir_c, x, ov_c)
         assert y_d.shape == (2, B * T) and ov_d.shape == (2, 255)
         assert (y_d.cpu() - y_c).abs().max() < 1e-4
         assert (ov_d.cpu() - ov_c).abs().max() < 1e-4
@@ -248,8 +267,9 @@ def test_k8_short_blocks_match_direct(dev, N):
     ov = torch.zeros(2, 255, device=dev)
     ys = []
     for b in range(3):
-        y, ov = binaural.hrtf_conv_cuda(
-            hrir, torch.from_numpy(x[:, b * N:(b + 1) * N]).to(dev), ov)
+        y, ov = one_stream(
+            binaural.hrtf_conv_cuda, hrir,
+            torch.from_numpy(x[:, b * N:(b + 1) * N]).to(dev), ov)
         ys.append(y.cpu().numpy())
     full = np.zeros((2, 3 * N + 255))
     for e in range(2):
@@ -276,8 +296,8 @@ def test_k8_filter_lengths(dev, taps):
     ys, ys_m, t = [], [], 0
     for n in lens:
         xb = x[:, t:t + n]
-        y, ov = binaural.hrtf_conv_cuda(hrir, torch.from_numpy(xb).to(dev),
-                                        ov)
+        y, ov = one_stream(binaural.hrtf_conv_cuda, hrir,
+                           torch.from_numpy(xb).to(dev), ov)
         y_m, ov_m = k8_model.k8(bank, xb, ov_m)
         assert np.abs(y.cpu().numpy() - y_m).max() < 1e-5
         ys.append(y.cpu().numpy())
@@ -418,9 +438,9 @@ def test_k9_matches_plain(dev, C, N):
     xs = [_noise(rng, C, N, 0.5) for _ in range(2)]
     for x in xs:
         launches = limiter.K9.launches
-        pk_d, hist_d = limiter.truepeak_cuda(x.to(dev), hist_d)
+        pk_d, hist_d = one_stream(limiter.truepeak_cuda, x.to(dev), hist_d)
         assert limiter.K9.launches == launches + 1
-        pk_c, hist_c = limiter.truepeak_plain(x, hist_c)
+        pk_c, hist_c = one_stream(limiter.truepeak_plain, x, hist_c)
         assert torch.equal(pk_d.cpu(), pk_c)
         assert torch.equal(hist_d.cpu(), hist_c)
     cfg = limiter.LimiterConfig(channels=C, true_peak=True)
@@ -461,4 +481,113 @@ def test_codec_paths_match_cpu(dev, name, monkeypatch):
     assert got.shape == want.shape
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
     assert all(k.launches > 0 for k in must)
+    assert all(k.plain_on_cuda == 0 for k in kernels)
+
+
+def _stack(states):
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+@pytest.mark.parametrize("true_peak", [False, True])
+@pytest.mark.parametrize("C", [2, 12])
+def test_stream_axis_k3_k9(dev, C, true_peak):
+    """K3 (fed by K9 in true-peak mode) on x [3, C, N] in one launch: each
+    stream equal to an S = 1 call on the card and to the twin, 0 LSB and a
+    bit-equal state, over two batches; the streams start idle, engaged and
+    mid-release. K9 at S = 3 bit for bit against three S = 1 calls."""
+    rng = np.random.RandomState(C + 100 * true_peak)
+    cfg = limiter.LimiterConfig(channels=C, true_peak=true_peak)
+    N = 4 * 960
+    states = [limiter.init_state(cfg, "cpu"), limiter.init_state(cfg, "cpu"),
+              _mid_release(limiter.LimiterConfig(channels=C), rng)]
+    if true_peak:
+        states[2]["tp_hist"] = _noise(rng, C, limiter.TP_HIST, 0.5)
+    st_c = _stack(states)
+    st_d = {k: v.to(dev) for k, v in st_c.items()}
+    singles = [{k: v.to(dev) for k, v in st.items()} for st in states]
+    for level in (0.5, 0.1):
+        x = torch.stack([_noise(rng, C, N, lv) for lv in (level, 0.05,
+                                                          level)])
+        xd = x.to(dev)
+        if true_peak:
+            launches = limiter.K9.launches
+            pk, h = limiter.truepeak_cuda(xd, st_d["tp_hist"])
+            assert limiter.K9.launches == launches + 1
+            for s in range(3):
+                pk1, h1 = limiter.truepeak_cuda(xd[s:s + 1],
+                                                st_d["tp_hist"][s:s + 1])
+                assert torch.equal(pk[s:s + 1], pk1)
+                assert torch.equal(h[s:s + 1], h1)
+        launches = limiter.K3.launches
+        st_d, q_d = limiter.limit_quantize(cfg, st_d, xd, 16, 960)
+        assert limiter.K3.launches == launches + 1
+        st_c, q_c = limiter.limit_quantize(cfg, st_c, x, 16, 960)
+        assert torch.equal(q_d.cpu(), q_c)
+        for k in st_c:
+            assert torch.equal(st_d[k].cpu(), st_c[k]), k
+        for s in range(3):
+            singles[s], q1 = one_stream(limiter.limit_quantize, cfg,
+                                        singles[s], xd[s], 16, 960)
+            assert torch.equal(q_d[s], q1)
+            for k in st_c:
+                assert torch.equal(st_d[k][s], singles[s][k]), (s, k)
+
+
+@pytest.mark.parametrize("C", [6, 12])
+def test_stream_axis_k8(dev, C):
+    """K8 on beds [3, C, B*T] in one launch, one bank: each stream equal to
+    an S = 1 call on the card and within K8's bound of the twin."""
+    rng = np.random.RandomState(C)
+    B, T = 16, 960
+    bank = binaural.hrir_bank(K8_BEDS[C])
+    hrir_d = binaural.hrir_for_batch(bank, B, T, dev)
+    hrir_c = binaural.hrir_for_batch(bank, B, T, "cpu")
+    x = torch.from_numpy((rng.randn(3, C, B * T) * 0.3).astype(np.float32))
+    ov = torch.from_numpy((rng.randn(3, 2, 255) * 0.1).astype(np.float32))
+    launches = binaural.K8.launches
+    y, o = binaural.hrtf_conv(hrir_d, x.to(dev), ov.to(dev))
+    assert binaural.K8.launches == launches + 1
+    y_c, o_c = binaural.hrtf_conv(hrir_c, x, ov)
+    assert (y.cpu() - y_c).abs().max() < 1e-4
+    assert (o.cpu() - o_c).abs().max() < 1e-4
+    for s in range(3):
+        y1, o1 = binaural.hrtf_conv(hrir_d, x[s:s + 1].to(dev),
+                                    ov[s:s + 1].to(dev))
+        assert torch.equal(y[s:s + 1], y1) and torch.equal(o[s:s + 1], o1)
+
+
+def test_server_on_card(dev):
+    """A PCM 7.1.4 fleet of unequal lengths and the Opus sample with a cut
+    of it, served on the card: each stream within 1 LSB of its own card
+    decode (fetch=False; cuBLAS may pick another product for the render
+    with more frames in its batch), and one launch of each kernel per call
+    of a bucket."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.core.serving import MultiStreamServer
+    from iamf_tpu_torch.tools import streams
+
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    desc, units = streams.split_into_units(data)
+    fleet = [streams.build_pcm_layout_stream(ChannelLayout.L714, n_frames=n,
+                                             amp=0.9, seed=n)[0]
+             for n in (20, 13)] + [data, desc + b"".join(units[:12])]
+    kw = dict(sound_system=9, batch_frames=8)
+    kernels = (imdct.K1, synth.K2, limiter.K3)
+    for k in kernels:
+        k.reset()
+    srv = MultiStreamServer(fleet, device=dev, **kw)
+    outs = srv.decode_all()
+    assert srv.n_buckets == 2
+    fleet_launches = [k.launches for k in kernels]
+    for stream, got in zip(fleet, outs):
+        own = BatchedStreamDecoder(stream, device=dev,
+                                   **kw).decode_all(fetch=False)
+        assert len(got) == len(own)
+        for a, b in zip(got, own):
+            assert (a.int() - b.int()).abs().max() <= 1
+    # a bucket makes one call per kept batch of its longest member: the
+    # PCM bucket 3 (20 frames at B = 8), the Opus bucket 3 (16 frames and
+    # the head-trim call)
+    assert fleet_launches == [3, 3, 6]
     assert all(k.plain_on_cuda == 0 for k in kernels)

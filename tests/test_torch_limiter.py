@@ -133,6 +133,14 @@ def window_peaks(state, x):
     return np.lib.stride_tricks.sliding_window_view(S, D)[:x.shape[1]].max(1)
 
 
+def one_stream(fn, cfg, state, x, *args):
+    """fn (limit_plain or limit_quantize) on one stream: the stream axis
+    put on the state and x, and taken off the state and output."""
+    state, y = fn(cfg, {k: v[None] for k, v in state.items()}, x[None],
+                  *args)
+    return {k: v[0] for k, v in state.items()}, y[0]
+
+
 def _bits(a):
     return np.asarray(a, np.float32).view(np.int32)
 
@@ -216,9 +224,9 @@ def test_binaural_content():
     calls = []
     real = ppipe.limit_quantize
 
-    def spy(cfg, state, x, bits, frame):
-        calls.append((cfg, {k: v.clone() for k, v in state.items()},
-                      x.clone()))
+    def spy(cfg, state, x, bits, frame):  # x [S = 1, C, N]
+        calls.append((cfg, {k: v[0].clone() for k, v in state.items()},
+                      x[0].clone()))
         return real(cfg, state, x, bits, frame)
 
     ppipe.limit_quantize = spy
@@ -262,7 +270,7 @@ def test_burst_across_batch_edge():
         xb = torch.from_numpy(x[:, b * N:(b + 1) * N])
         env0 = st["env"].numpy()
         em, _, tcs = check_walk(CFG, env0, window_peaks(st, xb))
-        st, _ = limiter.limit_plain(CFG, st, xb, 960)
+        st, _ = one_stream(limiter.limit_plain, CFG, st, xb, 960)
         np.testing.assert_array_equal(_bits(em), _bits(st["env"]))
         m = np.searchsorted(tab.T, tcs[tcs >= 0])
         phases |= {"attack" if k < tab.A else "release" if k < tab.M
@@ -328,7 +336,9 @@ def test_state_from_jax_mid_release():
     x = _burst(3 * N, 1000, 3000, seed=7)
     st_j = jlim.init_state(jcfg)
     st_j, _ = jlim.process_block(jcfg, st_j, jnp.asarray(x[:, :2 * N]))
-    st = convert.pipe_carry({"pos": 0, "limiter": st_j}, "cpu")["limiter"]
+    st = {k: v[0] for k, v in  # the one stream
+          convert.pipe_carry({"pos": 0, "limiter": st_j}, "cpu")[
+              "limiter"].items()}
     tab = limiter.walk_tables(CFG)
     tc = st["env"][3].numpy()
     assert tab.T[tab.A] <= tc < tab.T[tab.M]  # mid-release
@@ -351,3 +361,36 @@ def test_unreachable_tc_refused():
     for tc in (tab.T[17] * f32(1.0000001), f32(0.5) * tab.T[1], 0.3):
         with pytest.raises(ValueError, match="reaches"):
             convert.limiter_state(dict(st, current_tc=np.float32(tc)), "cpu")
+
+
+@pytest.mark.parametrize("true_peak", [False, True])
+def test_stream_axis_equals_single_streams(true_peak):
+    """limit_quantize on x [3, C, N] with a [3, ...] state (one stream
+    engaged, one idle, one entering mid-release) gives each stream what an
+    S = 1 call on its slice gives: 0 LSB and an equal state. The twin runs
+    the streams one by one; K3 walks each in its own block
+    (tests/test_torch_cuda.py holds the card to this)."""
+    rng = np.random.RandomState(11)
+    C, N = 2, 4 * 960
+    cfg = limiter.LimiterConfig(channels=C, true_peak=true_peak)
+    mid, _ = one_stream(limiter.limit_plain, cfg,
+                        limiter.init_state(cfg, "cpu"),
+                        torch.from_numpy(_burst(N, 500, 1500)), 960)
+    states = [limiter.init_state(cfg, "cpu"), limiter.init_state(cfg, "cpu"),
+              mid]
+    x = np.stack([_burst(N, 900, 2500, seed=4),
+                  (rng.randn(C, N) * 0.05).astype(np.float32),
+                  (rng.randn(C, N) * 0.2).astype(np.float32)])
+    x = torch.from_numpy(x)
+    stacked = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+    st3, pcm3 = limiter.limit_quantize(cfg, stacked, x, 16, 960)
+    assert pcm3.shape == (3, N, C)
+    envs = []
+    for s in range(3):
+        st1, pcm1 = one_stream(limiter.limit_quantize, cfg, states[s],
+                               x[s], 16, 960)
+        assert torch.equal(pcm3[s], pcm1)
+        for k in st1:
+            assert torch.equal(st3[k][s], st1[k]), (s, k)
+        envs.append(float(st1["env"][3]))
+    assert envs[1] == -1.0 and envs[0] != -1.0 and envs[2] != -1.0

@@ -124,6 +124,77 @@ def test_output_paths_without_jax(tmp_path, monkeypatch):
         assert np.abs(got[k].astype(np.int32) - w.astype(np.int32)).max() <= 1
 
 
+NOJAX_SERVING_PATHS = r"""
+import os
+import sys
+sys.modules["jax"] = None
+sys.modules["iamf_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from iamf_tpu_torch.constants import ChannelLayout
+from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+from iamf_tpu_torch.core.serving import MultiStreamServer
+from iamf_tpu_torch.tools import streams
+path = os.path.join(os.path.dirname(sys.argv[2]), "s.mp4")
+with open(path, "wb") as f:
+    f.write(streams.build_fmp4(streams.build_pcm_51_stream(n_frames=8)[0],
+                               fragments=3))
+mp4 = BatchedStreamDecoder.from_mp4(path, start_sec=0.05, sound_system=1,
+                                    batch_frames=3, device="cpu").decode_all()
+reconfigured = BatchedStreamDecoder(
+    streams.build_pcm_layout_stream(ChannelLayout.STEREO, n_frames=5)[0]
+    + streams.build_pcm_51_stream(n_frames=4)[0], sound_system=1,
+    batch_frames=3, device="cpu").decode_all()
+fleet = [streams.build_pcm_layout_stream(ChannelLayout.L714, n_frames=n,
+                                         seed=n)[0] for n in (5, 9)]
+served = MultiStreamServer(fleet, sound_system=9, batch_frames=4,
+                           device="cpu").decode_all()
+np.savez(sys.argv[2], mp4=mp4, reconfigured=reconfigured,
+         served0=np.concatenate([b.numpy() for b in served[0]]),
+         served1=np.concatenate([b.numpy() for b in served[1]]))
+assert not any(m.split(".")[0] in ("jax", "iamf_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("NOJAX-OK")
+"""
+
+
+def test_serving_paths_without_jax(tmp_path):
+    """from_mp4 (fMP4, a seek), a reconfigured stream and a
+    MultiStreamServer fleet with JAX and the JAX package blocked, held to
+    the JAX package's decoders here on the same bytes: 0 LSB on PCM."""
+    import numpy as np
+
+    import vectors
+    from iamf_tpu.constants import ChannelLayout
+    from iamf_tpu.core.batch_decoder import BatchedStreamDecoder as Jax
+    from iamf_tpu.core.serving import MultiStreamServer as JaxServer
+
+    out = tmp_path / "out.npz"
+    r = subprocess.run([sys.executable, "-c", NOJAX_SERVING_PATHS, ROOT,
+                        str(out)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX-OK" in r.stdout
+    got = np.load(out)
+    fleet = [vectors.build_pcm_layout_stream(ChannelLayout.L714, n_frames=n,
+                                             seed=n)[0] for n in (5, 9)]
+    served = JaxServer(fleet, sound_system=9, batch_frames=4).decode_all()
+    want = {
+        "mp4": Jax.from_mp4(str(tmp_path / "s.mp4"), start_sec=0.05,
+                            sound_system=1, batch_frames=3).decode_all(),
+        "reconfigured": Jax(vectors.build_pcm_layout_stream(
+            ChannelLayout.STEREO, n_frames=5)[0]
+            + vectors.build_pcm_51_stream(n_frames=4)[0], sound_system=1,
+            batch_frames=3).decode_all(),
+        "served0": np.concatenate([np.asarray(b) for b in served[0]]),
+        "served1": np.concatenate([np.asarray(b) for b in served[1]]),
+    }
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert got[k].shape == w.shape and got[k].dtype == w.dtype, k
+        assert np.array_equal(got[k], w), k
+
+
 def test_sources_import_no_jax():
     """No module of the port and not chip_smoke.py imports JAX or the JAX
     package, at module level or inside a function (relative imports stay
@@ -133,6 +204,9 @@ def test_sources_import_no_jax():
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
     assert len(paths) > 30
+    for new in ("core/serving.py", "mp4/demux.py", "mp4/iamf_track.py",
+                "tools/mp4builder.py"):
+        assert os.path.join(ROOT, "iamf_tpu_torch", new) in paths, new
     bad = []
     for path in paths:
         for node in ast.walk(ast.parse(open(path).read())):
@@ -191,6 +265,25 @@ def test_default_device_is_the_card():
         BatchedStreamDecoder(data, sound_system=9)
 
 
+def test_server_and_mp4_default_to_the_card(tmp_path):
+    """MultiStreamServer and from_mp4 run on the card by default too: with
+    no card visible they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: this checks the refusal")
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.core.serving import MultiStreamServer
+    from iamf_tpu_torch.tools import streams
+
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    path = tmp_path / "s.mp4"
+    path.write_bytes(streams.build_mp4(data))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiStreamServer([data, data], sound_system=9)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedStreamDecoder.from_mp4(str(path), sound_system=9)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel's wrapper never hands a CPU pointer to the device: it
     raises before building or loading anything."""
@@ -210,17 +303,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(120), torch.zeros(1, 2, 960), torch.zeros(1, 2, 973),
             torch.zeros(2, synth.HIST), torch.zeros(2)),
         "K3": lambda: limiter.limit_quantize_cuda(
-            cfg, limiter.init_state(cfg, "cpu"), torch.zeros(2, 960), 16),
+            cfg, {k: v[None] for k, v in limiter.init_state(cfg, "cpu")
+                  .items()}, torch.zeros(1, 2, 960), 16),
         "K8": lambda: binaural.hrtf_conv_cuda(
-            hrir, torch.zeros(2, 960), torch.zeros(2, 255)),
+            hrir, torch.zeros(1, 2, 960), torch.zeros(1, 2, 255)),
         "K10": lambda: resample.resample_cuda(
             resample.ResamplePlan(44100, 48000, device="cpu"),
             torch.zeros(2, 960)),
         "K7": lambda: aac_synth.synthesize_cuda(
             aac_synth.Tables(), torch.zeros(1, 2, 1024),
             torch.zeros(1, 2, 3, dtype=torch.int32), torch.zeros(2, 1024)),
-        "K9": lambda: limiter.truepeak_cuda(torch.zeros(2, 960),
-                                            torch.zeros(2, 11)),
+        "K9": lambda: limiter.truepeak_cuda(torch.zeros(1, 2, 960),
+                                            torch.zeros(1, 2, 11)),
     }
     for name, call in calls.items():
         with pytest.raises(ValueError, match="CUDA device"):

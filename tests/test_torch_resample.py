@@ -111,7 +111,8 @@ def test_emit_float_matches_jax():
     _, yj = jpipe.decode_frames(jd.cfg, jpipe.init_carry(jd.cfg), params_j,
                                 [jnp.asarray(x)])
     carry, yp = ppipe.decode_frames(cfg_p, ppipe.init_carry(cfg_p, "cpu"),
-                                    params_p, [torch.from_numpy(x)])
+                                    params_p, [torch.from_numpy(x)[None]])
+    yp = yp[0]  # the one stream
     yj = np.asarray(yj)
     assert yp.dtype == torch.float32 and yp.shape == yj.shape == (B * T, 6)
     assert np.abs(yp.numpy() - yj).max() <= 1e-6

@@ -356,6 +356,10 @@ STREAM_ARGS = {
         ((), dict(order=3, n_frames=2, projection=True))],
     "build_two_element_stream": [((), dict(n_frames=2, gain2_q78=-(3 << 8),
                                            hrm=1))],
+    "build_scalable_pcm_stream": [
+        ((), dict(n_frames=3, demix_modes=[0, 1, 2], amp=0.3)),
+        ((), dict(n_frames=2, recon_gains=[(200, 180)], hrm=1,
+                  layer2_output_gain=(0b100000, -256)))],
     "aac_decoder_config": [((bytes([0x11, 0x90]),), {}),
                            ((bytes([0x11, 0x88]),), dict(avg_bitrate=64000))],
 }

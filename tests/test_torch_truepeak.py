@@ -88,10 +88,10 @@ def test_meter_sees_intersample_peaks():
     by 2 %)."""
     t = np.arange(4096)
     x = np.sin(2 * np.pi * t / 4 + np.pi / 4).astype(np.float32)[None]
-    peaks, _ = limiter.truepeak_plain(torch.from_numpy(x),
-                                      torch.zeros(1, limiter.TP_HIST))
+    peaks, _ = limiter.truepeak_plain(torch.from_numpy(x[None]),
+                                      torch.zeros(1, 1, limiter.TP_HIST))
     assert np.abs(x).max() < 0.71
-    assert peaks[100:].reshape(-1, 4).amax(dim=1).min() > 0.95
+    assert peaks[0, 100:].reshape(-1, 4).amax(dim=1).min() > 0.95
 
 
 def test_truepeak_decode_matches_jax(monkeypatch):
@@ -111,3 +111,21 @@ def test_truepeak_decode_matches_jax(monkeypatch):
     assert got.shape == want.shape == sample.shape
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
     assert np.abs(sample.astype(np.int32) - got.astype(np.int32)).max() > 500
+
+
+def test_twin_stream_axis_equals_single_streams():
+    """truepeak_plain on x [3, C, T] with histories [3, C, 11] gives each
+    stream its S = 1 call's peaks (the maximum over that stream's channels
+    only) and history, bit for bit."""
+    rng = np.random.RandomState(21)
+    x = torch.from_numpy((rng.randn(3, 4, 700) * [[[0.1]], [[0.5]], [[0.9]]]
+                          ).astype(np.float32))
+    hist = torch.from_numpy(rng.randn(3, 4, limiter.TP_HIST).astype(
+        np.float32))
+    pk3, h3 = limiter.truepeak_plain(x, hist)
+    assert pk3.shape == (3, 700) and h3.shape == (3, 4, limiter.TP_HIST)
+    for s in range(3):
+        pk1, h1 = limiter.truepeak_plain(x[s:s + 1], hist[s:s + 1])
+        assert torch.equal(pk3[s:s + 1], pk1)
+        assert torch.equal(h3[s:s + 1], h1)
+    assert float(pk3[0].max()) < float(pk3[2].max())
