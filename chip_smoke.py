@@ -85,7 +85,23 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      one entry under stats["segments"];
  15. MP4: the Opus sample muxed into MP4 and fMP4 (tools/mp4builder.py),
      from_mp4 -> J at batch_frames=8 against the golden, and with
-     start_sec=0.1 against the CPU run of the same file.
+     start_sec=0.1 against the CPU run of the same file;
+ 16. the frame-serial decoder (api.IAMFDecoder, one access unit a call):
+     the Opus sample -> J through IAMFDecoder() (its default device, the
+     card) against the CPU serial decode (<= 1 LSB) and the golden (the JAX
+     package's batched decode; <= 2 LSB, the JAX package's own
+     serial-vs-batched bound); three cells at full width, 30 s of 7.1.4
+     PCM -> J (960-sample frames, limiter on), the same content with
+     headphones rendering mode 1 -> binaural (M2B: K8) and phase 9's
+     AAC-LC content -> J (1024-sample frames), each against the CPU serial
+     run (the AAC one on its first 400 access units) and against the card's
+     batched decode_all of the same stream (<= 1 LSB), with its realtime
+     factor (median of 3), the device's busy share from one torch.profiler
+     trace, and K3's and K8's launches per decode checked against the
+     frames that reach the limiter and the HRTF renderer; a short true-peak
+     run (K9 once a frame); a configure(None) re-target mid-stream (J,
+     5.1, binaural); the port's player (-o2 -s9, and -i1 on the sample
+     in MP4) on the card against the CPU player's WAV.
 Each phase prints its wall.
 Every kernel's launch count in the kernels line comes from the run of the
 path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
@@ -1250,6 +1266,7 @@ def trace_decode(fn, label):
     top = "; ".join(f"{k[:48]} {v:.3f}" for v, k in per[:8])
     print(f"{label} trace: wall {wall:.1f} ms under the profiler, device "
           f"{busy:.2f} ms, busy {100 * busy / wall:.1f} %; top (ms): {top}")
+    return 100 * busy / wall
 
 
 def decode_path(dev, tag, label, data, kw, kernels, must, must_not=()):
@@ -1787,6 +1804,320 @@ def mp4_phase(dev, tag, kernels):
     shutil.rmtree(out_dir)
 
 
+# --- phase 16: the frame-serial decoder --------------------------------------
+
+def serial_decode(dec, data, ss=None, binaural=False, targets=(),
+                  switch_at=0, view=True):
+    """The port's player loop (tools/player.py decode_bitstream) through
+    an IAMFDecoder: configure, one access unit a decode call, flush.
+    `targets` re-targets the output layout (a sound system or "b") every
+    `switch_at` output frames through configure(None) with stream reuse.
+    Each call gets the rest of the stream as a memoryview; view=False
+    slices the bytes as the player does, a copy of the rest a call
+    (quadratic in the stream's length). Returns the list of output
+    chunks."""
+    if binaural:
+        dec.set_binaural()
+    else:
+        dec.set_sound_system(ss)
+    if view:
+        data = memoryview(data)
+    pos = dec.configure(data)
+    chunks, frames, k = [], 0, 0
+    while pos < len(data):
+        if switch_at and frames and frames % switch_at == 0 \
+                and k < len(targets):
+            t, k = targets[k], k + 1
+            dec.set_binaural() if t == "b" else dec.set_sound_system(t)
+            dec.configure(None)
+        consumed, pcm = dec.decode(data[pos:])
+        if consumed == 0 and pcm is None:
+            break
+        pos += consumed
+        if pcm is not None and len(pcm):
+            chunks.append(pcm)
+            frames += 1
+    _, pcm = dec.decode(None)
+    if pcm is not None and len(pcm):
+        chunks.append(pcm)
+    return chunks
+
+
+def _serial(device, data, **kw):
+    from iamf_tpu_torch.api import IAMFDecoder
+
+    dec = IAMFDecoder() if device is None else IAMFDecoder(device=device)
+    return np.concatenate(serial_decode(dec, data, **kw))
+
+
+class _Reach:
+    """Counts, beside the kernels' own counters, the frames that reach the
+    serial limiter (non-empty) and the HRTF renderer, by wrapping their
+    methods for the phase."""
+
+    def __init__(self):
+        from iamf_tpu_torch.dsp.binaural import HRTFRenderer
+        from iamf_tpu_torch.dsp.limiter import Limiter
+
+        self.n = {"limiter": 0, "hrtf": 0}
+        self.saved = [(Limiter, "process", Limiter.process),
+                      (HRTFRenderer, "render", HRTFRenderer.render)]
+        lim, hrtf = Limiter.process, HRTFRenderer.render
+
+        def process(obj, x, *a):
+            self.n["limiter"] += x.shape[1] > 0
+            return lim(obj, x, *a)
+
+        def render(obj, x):
+            self.n["hrtf"] += 1
+            return hrtf(obj, x)
+
+        Limiter.process, HRTFRenderer.render = process, render
+
+    def reset(self):
+        self.n = dict.fromkeys(self.n, 0)
+
+    def restore(self):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+
+def _lsb(a, b) -> int:
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def serial_cell(dev, tag, label, data, kw, bkw, reach, n_frames, frame,
+                cpu_units=None):
+    """One full-width serial cell: three timed card decodes (the first
+    counted), one traced; against the CPU serial run (of the first
+    `cpu_units` access units when given: compared on the first
+    (cpu_units - 2) frames) and the card's batched decode_all."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.dsp.binaural import K8
+    from iamf_tpu_torch.dsp.limiter import K3, K9
+    from iamf_tpu_torch.tools import streams
+
+    kernels = (K3, K8, K9)
+    walls = []
+    for i in range(3):
+        if i == 0:
+            reach.reset()
+            for k in kernels:
+                k.reset()
+        t = time.perf_counter()
+        got = _serial(dev, data, **kw)
+        walls.append(time.perf_counter() - t)
+        if i == 0:
+            launches = {k.symbol: k.launches for k in kernels}
+            frames = dict(reach.n)
+            plain = {k.symbol: k.plain_on_cuda for k in kernels}
+    secs = got.shape[0] / 48000.0
+    rtx = secs / np.median(walls)
+    batched = BatchedStreamDecoder(data, device=dev, batch_frames=B_MAIN,
+                                   **bkw).decode_all()
+    d_b = _lsb(got, batched) if got.shape == batched.shape else None
+    t = time.perf_counter()
+    if cpu_units:
+        desc, units = streams.split_into_units(data)
+        want = _serial("cpu", desc + b"".join(units[:cpu_units]), **kw)
+        n = (cpu_units - 2) * frame
+        d_c, what = _lsb(got[:n], want[:n]), f"first {n} samples"
+        same = want.shape[1] == got.shape[1] and len(want) > n
+    else:
+        want = _serial("cpu", data, **kw)
+        d_c, what = (_lsb(got, want) if got.shape == want.shape
+                     else None), "whole stream"
+        same = got.shape == want.shape
+    cpu_s = time.perf_counter() - t
+    busy = trace_decode(lambda: _serial(dev, data, **kw), label)
+    k3, k8 = launches[K3.symbol], launches[K8.symbol]
+    print(f"{label}: shape {got.shape}; max|diff| vs CPU serial run "
+          f"({what}, {cpu_s:.1f} s) {d_c} LSB, vs batched decode_all on the "
+          f"card {d_b} LSB; launches a decode K3 {k3}, K8 {k8}, K9 "
+          f"{launches[K9.symbol]} for {n_frames} frames (frames reaching "
+          f"the limiter {frames['limiter']}, the HRTF renderer "
+          f"{frames['hrtf']}); plain twins on CUDA {plain}")
+    print(f"{label} realtime factor {rtx:.2f}x (median of 3; {secs:.3f} s "
+          f"audio in {_ms(walls)} ms wall), device busy {busy:.1f} % "
+          f"{tag}")
+    check(same and d_c is not None and d_c <= 1,
+          f"{label}: vs CPU serial run {d_c} LSB")
+    check(d_b is not None and d_b <= 1,
+          f"{label}: vs batched decode {d_b} LSB, shapes {got.shape} "
+          f"{batched.shape}")
+    check(k3 == frames["limiter"] == n_frames + 1,
+          f"{label}: K3 launches {k3}, frames at the limiter {frames}")
+    check(k8 == frames["hrtf"] == (n_frames if kw.get("binaural") else 0),
+          f"{label}: K8 launches {k8}, frames at the renderer {frames}")
+    check(launches[K9.symbol] == 0 and not any(plain.values()),
+          f"{label}: {launches}, plain twins {plain}")
+    return dict(realtime_x=rtx, busy=busy, k3=k3, k8=k8)
+
+
+def serial_syncs(dev, data, n_frames):
+    """The serial decoder's host waits on the card (torch's sync debug
+    mode, one warning a synchronizing call, tallied by the Python line
+    that made it): each frame's only one is the copy of its int PCM back
+    (api._to_host), one a frame and one for the drain; the others come
+    once a decoder (its set-up), not with the frames."""
+    import collections
+    import warnings
+
+    for kw in (dict(ss=9), dict(binaural=True)):
+        _serial(dev, data, **kw)  # warm
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _serial(dev, data, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sites = collections.Counter(
+            f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            for w in caught if "synchroniz" in str(w.message).lower())
+        fetch = sum(n for site, n in sites.items()
+                    if site.startswith("iamf_tpu_torch/api.py"))
+        others = {k: n for k, n in sites.items()
+                  if not k.startswith("iamf_tpu_torch/api.py")}
+        print(f"serial syncs, {n_frames} frames {kw}: {dict(sites)}")
+        check(fetch == n_frames + 1 and len(
+            [k for k in sites if k.startswith("iamf_tpu_torch/api.py")]) == 1,
+              f"serial syncs: the PCM copies back {fetch}, {dict(sites)}")
+        check(max(others.values(), default=0) < n_frames // 4,
+              f"serial syncs: a wait a frame besides the copy back: {others}")
+
+
+def serial_phase(dev, tag, kernels):
+    """Phase 16: the frame-serial IAMFDecoder on the card."""
+    from iamf_tpu_torch.dsp.binaural import K8
+    from iamf_tpu_torch.dsp.limiter import K3, K9
+    from iamf_tpu_torch.tools import player, streams
+
+    L = streams.ChannelLayout
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    reach = _Reach()
+    try:
+        for k in kernels:
+            k.reset()
+        got = _serial(None, sample, ss=9)  # IAMFDecoder(): the card
+        k3 = K3.launches
+        want = _serial("cpu", sample, ss=9)
+        golden = _golden()
+        d_c = _lsb(got, want) if got.shape == want.shape else None
+        d_g = _lsb(got, golden) if got.shape == golden.shape else None
+        print(f"serial opus sample -> ssJ (IAMFDecoder()): shape "
+              f"{got.shape}; max|diff| vs CPU serial {d_c} LSB, vs golden "
+              f"(batched, JAX package) {d_g} LSB; K3 launches {k3}")
+        check(d_c is not None and d_c <= 1, f"serial opus vs CPU: {d_c}")
+        check(d_g is not None and d_g <= 2, f"serial opus vs golden: {d_g}")
+        check(k3 == 17 and K8.launches == 0, f"serial opus: K3 {k3}")
+
+        pcm = streams.build_pcm_layout_stream(L.L714, n_frames=1500,
+                                              amp=0.5)[0]
+        m2b = streams.build_pcm_layout_stream(L.L714, n_frames=1500,
+                                              amp=0.5, hrm=1)[0]
+        aac = streams.build_aac_layout_stream(L.L714, n_frames=1407,
+                                              seed=5)[0]
+        cells = {
+            "serial_pcm714_ssJ_30s": serial_cell(
+                dev, tag, "serial_pcm714_ssJ_30s", pcm, dict(ss=9),
+                dict(sound_system=9), reach, 1500, FRAME),
+            "serial_binaural714_m2b_30s": serial_cell(
+                dev, tag, "serial_binaural714_m2b_30s", m2b,
+                dict(binaural=True), dict(binaural=True), reach, 1500,
+                FRAME),
+            "serial_aac714_ssJ_30s": serial_cell(
+                dev, tag, "serial_aac714_ssJ_30s", aac, dict(ss=9),
+                dict(sound_system=9), reach, 1407, 1024, cpu_units=400),
+        }
+        print("serial cells: " + json.dumps(
+            {k: {f: round(v, 3) if isinstance(v, float) else v
+                 for f, v in c.items()} for k, c in cells.items()})
+              + f" {tag}")
+        serial_syncs(dev, streams.build_pcm_layout_stream(
+            L.L714, n_frames=40, amp=0.5, hrm=1)[0], 40)
+
+        # true peak: K9 meters every frame before K3
+        tp = streams.build_pcm_layout_stream(
+            L.L714, n_frames=60, pcm_override=streams.isp_tone_pcm(60, 12))[0]
+        old = os.environ.get("IAMF_TRUEPEAK")
+        os.environ["IAMF_TRUEPEAK"] = "1"
+        try:
+            reach.reset()
+            for k in kernels:
+                k.reset()
+            got = _serial(dev, tp, ss=9)
+            launches = {k.symbol: k.launches for k in (K3, K9)}
+            frames = reach.n["limiter"]
+            want = _serial("cpu", tp, ss=9)
+        finally:
+            if old is None:
+                del os.environ["IAMF_TRUEPEAK"]
+            else:
+                os.environ["IAMF_TRUEPEAK"] = old
+        plain = _serial(dev, tp, ss=9)
+        d = _lsb(got, want) if got.shape == want.shape else None
+        print(f"serial true peak 7.1.4 60 frames: max|diff| vs CPU {d} LSB, "
+              f"vs the sample-peak decode {_lsb(got, plain)}; launches "
+              f"{launches} for {frames} frames at the limiter")
+        check(d is not None and d <= 1, f"serial true peak: {d} LSB")
+        check(launches[K9.symbol] == launches[K3.symbol] == frames == 61,
+              f"serial true peak launches {launches}, frames {frames}")
+        check(_lsb(got, plain) > 500, "serial true peak: meter idle")
+
+        # configure(None): J -> 5.1 -> binaural, every 5 output frames
+        kw = dict(ss=9, targets=[1, "b"], switch_at=5)
+        from iamf_tpu_torch.api import IAMFDecoder
+
+        g = serial_decode(IAMFDecoder(), sample, **kw)
+        w = serial_decode(IAMFDecoder(device="cpu"), sample, **kw)
+        d = max(_lsb(a, b) for a, b in zip(g, w))
+        print(f"serial configure(None) re-target J -> 5.1 -> binaural: "
+              f"{len(g)} chunks, widths {sorted({c.shape[1] for c in g})}, "
+              f"max|diff| vs CPU {d} LSB")
+        check(len(g) == len(w) and all(a.shape == b.shape
+                                       for a, b in zip(g, w)) and d <= 1,
+              f"serial re-target: {d} LSB")
+        check(sorted({c.shape[1] for c in g}) == [2, 6, 12],
+              "serial re-target: layouts")
+    finally:
+        reach.restore()
+
+    # the player on the card against the CPU player
+    out_dir = tempfile.mkdtemp()
+    cwd = os.getcwd()
+    try:
+        paths = {"sample.iamf": sample, "sample.mp4": streams.build_mp4(
+            sample)}
+        for name, data in paths.items():
+            with open(os.path.join(out_dir, name), "wb") as f:
+                f.write(data)
+        for name, flags in (("sample.iamf", ["-o2", "-s9"]),
+                            ("sample.mp4", ["-i1", "-o2", "-s9"])):
+            wavs = []
+            for device in ("cuda", "cpu"):
+                d = os.path.join(out_dir, device + name)
+                os.makedirs(d)
+                os.chdir(d)
+                rc = player.main([*flags, "--device", device,
+                                  os.path.join(out_dir, name)])
+                check(rc == 0, f"player {name} {device}: rc {rc}")
+                wavs.append(open(os.path.join(d, "ss9_sample.wav"),
+                                 "rb").read())
+            a, b = (np.frombuffer(w[44:], np.int16) for w in wavs)
+            d = _lsb(a, b) if a.shape == b.shape else None
+            print(f"player {' '.join(flags)} {name} on the card vs the CPU "
+                  f"player: {len(wavs[0])} bytes, headers equal "
+                  f"{wavs[0][:44] == wavs[1][:44]}, files equal "
+                  f"{wavs[0] == wavs[1]}, max|diff| {d} LSB")
+            check(wavs[0][:44] == wavs[1][:44] and d is not None and d <= 1,
+                  f"player {name}: {d} LSB")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(out_dir)
+
+
 def main() -> int:
     from iamf_tpu_torch import require_cuda
     from iamf_tpu_torch.codecs.aac.synth import K7
@@ -1838,7 +2169,8 @@ def main() -> int:
     phase("13 short fleets", short_fleets_phase, dev, tag, kernels)
     phase("14 reconfigure", reconfigure_phase, dev, tag, kernels)
     phase("15 mp4", mp4_phase, dev, tag, kernels)
-    print(f"phases 2-15: {time.perf_counter() - t_all:.1f} s wall")
+    phase("16 serial", serial_phase, dev, tag, kernels)
+    print(f"phases 2-16: {time.perf_counter() - t_all:.1f} s wall")
 
     meta = {
         "k1_imdct_tdac": ("iamf_tpu_torch/csrc/imdct.cu",

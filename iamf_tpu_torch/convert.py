@@ -11,6 +11,10 @@ given device, so both packages can start a batch from identical state.
 - ``aac_carry``: iamf_tpu.codecs.aac.tpu_synth's [L, 1024] overlap carry
 - ``limiter_state``: iamf_tpu.dsp.limiter's state dict
 - ``pipeline_config``: iamf_tpu.core.pipeline.PipelineConfig
+- ``serial_limiter_state``: the frame-serial iamf_tpu.dsp.limiter.Limiter's
+  state, as dsp/limiter.Limiter carries it (a stream axis of 1)
+- ``hrtf_overlap``: the frame-serial iamf_tpu.dsp.binaural.HRTFRenderer's
+  overlap, as dsp/binaural.HRTFRenderer carries it ([1, 2, taps-1])
 
 The port's pipeline takes a leading stream axis on its parameters and
 carries (core/pipeline.py). ``stream_params``, ``pipe_carry`` and
@@ -115,6 +119,21 @@ def limiter_state(state: dict, device) -> dict:
     if "tp_hist" in state:
         out["tp_hist"] = _t(state["tp_hist"], device, np.float32)
     return out
+
+
+def serial_limiter_state(limiter, device) -> dict:
+    """The JAX frame-serial Limiter's state (its ``state`` dict) -> the
+    state dsp/limiter.Limiter carries: limiter_state's, with the stream
+    axis of 1. The swallow (``padsize``, ``inited``) is two host ints the
+    caller copies."""
+    state = {k: np.asarray(v) for k, v in limiter.state.items()}
+    return {k: v[None] for k, v in limiter_state(state, device).items()}
+
+
+def hrtf_overlap(renderer, device) -> torch.Tensor:
+    """The JAX frame-serial HRTFRenderer's overlap [2, taps-1] -> the
+    carry dsp/binaural.HRTFRenderer keeps, [1, 2, taps-1] float32."""
+    return _t(np.asarray(renderer.overlap)[None], device, np.float32)
 
 
 def _axis(tree, stacked: bool):

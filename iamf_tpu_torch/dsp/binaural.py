@@ -21,7 +21,11 @@ plain twin on a CPU tensor: the JAX package's segmented overlap-add (rfft
 at batch_seg_plan's length, a [2, C] complex contraction, irfft, each
 segment's tail added into the next one), stream by stream.
 
-The serial per-frame HRTFRenderer is not ported (ROADMAP.md §1 item 12).
+The frame-serial decoder's ``HRTFRenderer`` (core/stream.py's M2B and H2B)
+is the same call with B = 1: one frame of T samples a call, the segment is
+the frame, so the twin is the JAX package's one-block overlap-save
+(_fft_conv_block), and on the card K8 runs once a frame, its overlap carry
+[1, 2, taps-1] kept on the device.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from ..constants import CH, LAYOUT_CHANNELS_RENDER, ChannelLayout
 
+from ..device import resolve_device
 from ..kernels.build import I, Kernel, P
 
 SPEED_OF_SOUND = 343.0
@@ -349,3 +354,34 @@ def hrtf_conv(hrir: Hrir, x, overlap):
     if x.is_cuda:
         return hrtf_conv_cuda(hrir, x, overlap)
     return hrtf_conv_plain(hrir, x, overlap)
+
+
+class HRTFRenderer:
+    """Streaming binaural renderer for one element (M2B/H2B equivalent;
+    counterpart of iamf_tpu/dsp/binaural.py's): frames of `frame_size`
+    samples through hrtf_conv, K8 on a CUDA device and the twin on the
+    CPU, with the overlap carry on the device."""
+
+    def __init__(self, layout: ChannelLayout, frame_size: int,
+                 taps: int = 256, rate: int = 48000,
+                 bank: np.ndarray | None = None, device="cuda"):
+        self.layout = layout
+        self.frame_size = frame_size
+        self.device = resolve_device(device)
+        if bank is None:
+            bank = hrir_bank(layout, taps, rate)  # [2, C, taps]
+        else:
+            bank = np.asarray(bank, np.float32)  # measured set
+        self.taps = bank.shape[2]
+        self.hrir = hrir_for_batch(bank, 1, frame_size, self.device)
+        self.reset()
+
+    def render(self, x):
+        """x: [C, T] speaker feeds (rendering order), T = frame_size, on the
+        device -> [2, T] binaural on it."""
+        y, self.overlap = hrtf_conv(self.hrir, x[None], self.overlap)
+        return y[0]
+
+    def reset(self) -> None:
+        self.overlap = torch.zeros((1, 2, self.taps - 1), dtype=torch.float32,
+                                   device=self.device)

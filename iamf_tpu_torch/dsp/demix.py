@@ -167,7 +167,9 @@ def demix_frame(
 
     # recon-gain RMS equalization (dmx_rms, demixer.c:443-475)
     if rg_filt is not None and len(rg_index):
-        idx = list(rg_index)
+        # a tensor of indices (the serial decoder keeps one on the device)
+        # or a sequence
+        idx = rg_index if torch.is_tensor(rg_index) else list(rg_index)
         out[:, idx] = out[:, idx] * rg_filt
     return out
 
@@ -232,7 +234,8 @@ class DemixerState:
         region / rest of the frame, and rg is a list of
         (out_channel_index, last_sfavg, sfavg) recon-gain EMA pairs. The
         batched device pipeline rebuilds the per-sample vectors from these
-        plus the static skip/window constants."""
+        plus the static skip/window constants; `frame_params` below keeps
+        the dense host form for the frame-serial path."""
         cur = DEMIX_FACTORS.get(self.demixing_mode, (0, 0, 1, 1, 0))
         last = DEMIX_FACTORS.get(self.last_dmixtypenum, (0, 0, 1, 1, 0))
         w_cur = get_w(self.weight_state_idx)
@@ -258,3 +261,34 @@ class DemixerState:
             self.ch_last_sf[ch_id] = sf
             self.ch_last_sfavg[ch_id] = sfavg
         return last5, cur5, rg
+
+    def frame_params(self):
+        """Per-sample factor vectors + recon filters for the current frame,
+        then advance the EMA state (host-side part of dmx_rms). Numpy, as
+        the reference's: the frame-serial decoder (core/stream.py) sends
+        them to the device with the frame's PCM."""
+        T = self.frame_size
+        last5, cur5, rg = self.frame_params_scalars()
+
+        def blend(last_v: float, cur_v: float) -> np.ndarray:
+            v = np.full(T, cur_v, dtype=np.float32)
+            if self.skip:
+                v[: self.skip] = last_v
+            return v
+
+        factors = {
+            k: blend(last5[i], cur5[i])
+            for i, k in enumerate(("alpha", "beta", "gamma", "delta", "dw"))
+        }
+
+        rg_index: list[int] = []
+        rg_filt_rows: list[np.ndarray] = []
+        for out_idx, last_sfavg, sfavg in rg:
+            filt = (
+                last_sfavg * self.stop_window + sfavg * self.start_window
+            ).astype(np.float32)
+            rg_index.append(out_idx)
+            rg_filt_rows.append(filt)
+
+        rg_filt = np.stack(rg_filt_rows) if rg_filt_rows else None
+        return factors, tuple(rg_index), rg_filt

@@ -1,6 +1,8 @@
-"""Channel-layout downmix renderer (DMRenderer equivalent): the host half of
-iamf_tpu/dsp/downmix.py, copied (the matrix and the mode/w state machine;
-the device applies the matrix in core/pipeline.py).
+"""Channel-layout downmix renderer (DMRenderer equivalent; counterpart of
+iamf_tpu/dsp/downmix.py): the matrix and the mode/w state machine are
+copied (the batched decode applies the matrix in core/pipeline.py), and
+``downmix_apply`` evaluates the graph on tensors for the frame-serial
+decoder (core/stream.py).
 
 The reference computes each missing output channel per-sample via a recursive
 dependency graph (downmix_renderer.c:47-129). That graph is data-independent:
@@ -22,6 +24,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from ..constants import (
     CH,
@@ -111,6 +114,59 @@ def downmix_matrix(
 
     mat = np.stack([resolve(ch) for ch in chs_out])
     return mat.astype(np.float32)
+
+
+def downmix_apply(
+    x,  # [in_ch, T] float32 tensor, rendering order of in_layout
+    in_layout: ChannelLayout,
+    out_layout: ChannelLayout,
+    mode: int,
+    w_idx: int,
+):
+    """Evaluate the downmix dependency graph with the reference's float32
+    rounding order (_downmix_channel_data, downmix_renderer.c:115-129
+    computes `sum += child * scale` per node in float): one multiply and
+    one add per edge, each its own operation (no fused multiply-add, no
+    matrix fold), on x's device. Returns [out_ch, T]."""
+    alpha, beta, gamma, delta, _ = DEMIX_FACTORS[mode]
+    w = get_w(max(0, w_idx))
+    f = np.float32
+    gw = f(f(gamma) * f(w))
+    deps = {
+        CH.MONO: ((CH.R2, f(0.5)), (CH.L2, f(0.5))),
+        CH.L2: ((CH.L3, f(1.0)), (CH.C, f(0.707))),
+        CH.R2: ((CH.R3, f(1.0)), (CH.C, f(0.707))),
+        CH.TL: ((CH.HL, f(1.0)), (CH.SL5, gw)),
+        CH.TR: ((CH.HR, f(1.0)), (CH.SR5, gw)),
+        CH.L3: ((CH.L7, f(1.0)), (CH.SL5, f(delta))),
+        CH.R3: ((CH.R7, f(1.0)), (CH.SR5, f(delta))),
+        CH.SL5: ((CH.SL7, f(alpha)), (CH.BL7, f(beta))),
+        CH.SR5: ((CH.SR7, f(alpha)), (CH.BR7, f(beta))),
+        CH.HL: ((CH.HFL, f(1.0)), (CH.HBL, f(gamma))),
+        CH.HR: ((CH.HFR, f(1.0)), (CH.HBR, f(gamma))),
+    }
+    chs_in = LAYOUT_CHANNELS_RENDER[in_layout]
+    chs_out = LAYOUT_CHANNELS_RENDER[out_layout]
+    data = {c: x[i] for i, c in enumerate(chs_in)}
+    memo: dict = {}
+    T = x.shape[1]
+
+    def resolve(c):
+        if c in data:
+            return data[c]
+        if c in memo:
+            return memo[c]
+        if c not in deps:
+            return x.new_zeros(T)
+        acc = None
+        for dep_ch, scale in deps[c]:
+            # a float32 scalar multiplies a float32 tensor in float32
+            term = resolve(dep_ch) * float(scale)
+            acc = term if acc is None else acc + term
+        memo[c] = acc
+        return acc
+
+    return torch.stack([resolve(c) for c in chs_out])
 
 
 class DownmixerState:

@@ -35,6 +35,11 @@ one stream's channels, so each stream walks its own envelope: K3 and K9
 take the S streams in one launch, the twins run them one by one.
 ``init_state`` gives one stream's state without the axis.
 
+Frame-serial decoder (api.py): ``Limiter`` carries one stream's state
+(S = 1) on its device from call to call, keeps the reference's first-call
+padding swallow and quantizes in the same call: K3 (after K9 in true-peak
+mode) on a CUDA device, one launch a frame, and the twins on the CPU.
+
 State (a dict of tensors; core/pipeline.py carries it across batches):
   env:         float32 [S, 4] = current_gain, target_start_gain,
                target_end_gain, current_tc (-1 = idle)
@@ -52,8 +57,9 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.build import F, I, Kernel, P
-from .quantize import quantize_interleave
+from .quantize import pad_stride, quantize_interleave
 
 LIMITER_THRESHOLD_DB = -1.0
 LIMITER_ATTACK_SEC = 0.001
@@ -435,3 +441,49 @@ def limit_quantize(cfg: LimiterConfig, state: dict, x, bits: int,
         return limit_quantize_cuda(cfg, state, x, bits)
     state, y = limit_plain(cfg, state, x, frame)
     return state, quantize_interleave(y, bits)
+
+
+class Limiter:
+    """The frame-serial limiter (counterpart of iamf_tpu/dsp/limiter.py's
+    Limiter): one stream's state with the stream axis ([1, ...]) kept on
+    `device`, the first-call swallow of the delay_size padding samples
+    (audio_effect_peak_limiter.c:185-201), and the output quantized in the
+    same call, since the decoder quantizes right after the limiter."""
+
+    def __init__(self, cfg: LimiterConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.reset()
+
+    def reset(self) -> None:
+        self.state = {k: v[None] for k, v in
+                      init_state(self.cfg, self.device).items()}
+        self.padsize = self.cfg.delay_size
+        self.inited = False
+
+    @property
+    def delay(self) -> int:
+        """audio_effect_peak_limiter_get_delay: delaySize - padsize."""
+        return self.cfg.delay_size - self.padsize
+
+    def process(self, x, bits: int, stride: int = 0):
+        """x: [C, T] float32 on the device -> pcm [T', stride or C] int16 /
+        int32 on it: limit_quantize over the frame (K3 on the card, one
+        launch; the twins on the CPU), the first call's padding rows
+        dropped. T = 0 launches nothing."""
+        C, T = x.shape
+        if T:
+            self.state, y = limit_quantize(self.cfg, self.state, x[None],
+                                           bits, T)
+            y = y[0]
+        else:
+            y = torch.empty((0, C), device=x.device,
+                            dtype=torch.int16 if bits == 16 else torch.int32)
+        if not self.inited:
+            if self.padsize >= T:
+                self.padsize -= T
+                return pad_stride(y[:0], stride)
+            y = y[self.padsize:]
+            self.padsize = 0
+            self.inited = True
+        return pad_stride(y, stride)

@@ -2,11 +2,15 @@
 iamf_tpu/dsp/resample.py; reference: speexdsp resample.c at quality 4, as
 IAMF_decoder.c:57, :3193-3248 use it).
 
-Host part, a JAX-free copy of the original's speexdsp-parity filter design
-(update_filter, resample.c:530-610: Kaiser-windowed sinc, direct per-phase
-bank or oversampled table + cubic interpolation). The streaming
-``process``/``drain`` state machine is not copied: the device path indexes
-every output directly.
+Host part, a JAX-free copy of the original's speexdsp-parity
+``Resampler``: the filter design (update_filter, resample.c:530-610:
+Kaiser-windowed sinc, direct per-phase bank or oversampled table + cubic
+interpolation) and the streaming ``process``/``drain`` state machine
+(speex_resampler_process_float :920-970: filt_len-1 samples of history a
+channel, last_sample/samp_frac_num stepping, the [-1, 1] clamp), which the
+frame-serial decoder (api.py) runs on the host in numpy with float64
+accumulators, as the reference's serial decoder does. The batched decode
+indexes every output directly instead (below).
 
 Device part: ``ResamplePlan`` is DeviceResampler's host precompute. The
 output grid is affine in the output index: a chunk of in_chunk = num*Q
@@ -133,13 +137,15 @@ def _cubic_coef(frac: np.ndarray):
 
 
 class Resampler:
-    """speexdsp-parity filter design at a given quality (the JAX package's
-    Resampler without its streaming state)."""
+    """Streaming rational resampler, speexdsp-parity at a given quality
+    (host numpy, a copy of the JAX package's)."""
 
-    def __init__(self, in_rate: int, out_rate: int, quality: int = 4):
+    def __init__(self, channels: int, in_rate: int, out_rate: int,
+                 quality: int = 4):
         global _WINDOWS
         if _WINDOWS is None:
             _WINDOWS = _tables()
+        self.channels = channels
         self.in_rate = in_rate
         self.out_rate = out_rate
         g = math.gcd(in_rate, out_rate)
@@ -181,9 +187,79 @@ class Resampler:
                                    N, table, wovs)
             self.table = tab
 
+        self.int_advance = self.num // self.den
+        self.frac_advance = self.num % self.den
+        self.mem = np.zeros((channels, N - 1), np.float32)
+        # skip_zeros applied at open, as the decoder does (IAMF_decoder.c:1901)
+        self.last_sample = N // 2
+        self.samp_frac_num = 0
+
     @property
     def input_latency(self) -> int:
         return self.filt_len // 2
+
+    @property
+    def output_latency(self) -> int:
+        return (self.input_latency * self.den + self.samp_frac_num
+                ) // self.num
+
+    def process(self, x: np.ndarray) -> np.ndarray:
+        """x: [channels, T] float32 -> [channels, T_out] (FLTADJUST clamped)."""
+        x = np.asarray(x, np.float32)
+        T = x.shape[1]
+        buf = np.concatenate([self.mem, x], axis=1)
+        N = self.filt_len
+        # step positions until last_sample >= T
+        ls, frac = self.last_sample, self.samp_frac_num
+        positions, fracs = [], []
+        while ls < T:
+            positions.append(ls)
+            fracs.append(frac)
+            ls += self.int_advance
+            frac += self.frac_advance
+            if frac >= self.den:
+                frac -= self.den
+                ls += 1
+        if positions:
+            pos = np.asarray(positions)
+            idx = pos[:, None] + np.arange(N)[None, :]
+            windows = buf[:, idx]  # [C, n, N]
+            ph = np.asarray(fracs)
+            if self.direct:
+                # direct_single: float accumulation (float64 here; <=1 ulp)
+                out = np.einsum("cnf,nf->cn", windows.astype(np.float64),
+                                self.bank[ph].astype(np.float64))
+                out = out.astype(np.float32)
+            else:
+                # interpolate_single: 4 double accumulators + cubic mix
+                offs = ph * self.oversample // self.den
+                fr = ((ph * self.oversample) % self.den).astype(
+                    np.float32) / np.float32(self.den)
+                j = np.arange(N)
+                base = 4 + (j[None, :] + 1) * self.oversample - offs[:, None]
+                acc = [
+                    np.einsum("cnf,nf->cn", windows.astype(np.float64),
+                              self.table[base + (k - 2)].astype(np.float64))
+                    for k in range(4)
+                ]
+                c0, c1, c2, c3 = _cubic_coef(fr)
+                out = (c0[None] * acc[0] + c1[None] * acc[1]
+                       + c2[None] * acc[2] + c3[None] * acc[3]
+                       ).astype(np.float32)
+            out = np.clip(out, -1.0, 1.0)  # FLTADJUST
+        else:
+            out = np.zeros((self.channels, 0), np.float32)
+        consumed = min(ls, T)
+        self.last_sample = ls - consumed
+        self.samp_frac_num = frac
+        self.mem = buf[:, consumed:consumed + N - 1].copy()
+        return out
+
+    def drain(self) -> np.ndarray:
+        """Flush latency with zero input (iamf_resample rest_flag==2 path,
+        IAMF_decoder.c:3224-3247)."""
+        zeros = np.zeros((self.channels, self.input_latency), np.float32)
+        return self.process(zeros)
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,7 +268,7 @@ def _chunk_rows(in_rate: int, out_rate: int):
     loops, so it is kept per rate pair and shared read-only): (host
     design, in_chunk, out_chunk, carry_len, win_start [out_chunk] int32,
     W [out_chunk, N] float32)."""
-    host = Resampler(in_rate, out_rate, QUALITY)
+    host = Resampler(1, in_rate, out_rate, QUALITY)
     N = host.filt_len
     num, den = host.num, host.den
     Q = max(1, TARGET_CHUNK // num)

@@ -2,7 +2,7 @@
 """Single-stream decode walls of one tree on the card, for comparing trees.
 
     python3 perf/decode_walls.py times [--tree DIR] [--reps N] [--out FILE]
-                                       [--fleets]
+                                       [--fleets | --serial]
     python3 perf/decode_walls.py pairs FILE PARENT CHANGE
 
 Decodes, as chip_smoke.py's decode phases time them (the decoder built
@@ -17,7 +17,12 @@ over the median wall), every wall, the device time of one traced decode
 time in one decode under cProfile. With --fleets the cells are
 chip_smoke.py's three full-width fleets instead, each served by
 MultiStreamServer(...).decode_all() (the batches left on the card), its
-realtime factor the streams' audio seconds over the wall.
+realtime factor the streams' audio seconds over the wall. With --serial
+they are the frame-serial decoder's (api.IAMFDecoder on the card, one
+access unit a call, chip_smoke.serial_decode): 30 s of 7.1.4 PCM -> J,
+the same through the player's loop (each call given a copy of the rest of
+the bytes), 30 s of 7.1.4 M2B binaural, the first 300 access units of
+chip_smoke's 30 s AAC-LC content -> J, and the Opus sample -> J.
 
 DIR is a directory holding its own iamf_tpu_torch (e.g. a `git archive`
 of the parent commit unpacked under the ignored _chip/); by default this
@@ -97,6 +102,28 @@ def fleets(cs):
     }
 
 
+def serial_cells(cs):
+    from iamf_tpu_torch.tools import streams
+
+    L714 = streams.ChannelLayout.L714
+    pcm = streams.build_pcm_layout_stream(L714, n_frames=1500, amp=0.5)[0]
+    desc, units = streams.split_into_units(streams.build_aac_layout_stream(
+        L714, n_frames=1407, seed=5)[0])
+    opus = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    return {
+        "serial pcm 7.1.4 30 s -> ssJ": (pcm, dict(ss=9), False),
+        "serial pcm 7.1.4 30 s -> ssJ, the player's loop": (
+            pcm, dict(ss=9, view=False), False),
+        "serial binaural 7.1.4 M2B 30 s": (streams.build_pcm_layout_stream(
+            L714, n_frames=1500, amp=0.5, hrm=1)[0], dict(binaural=True),
+            False),
+        "serial aac 7.1.4 300 units -> ssJ": (
+            desc + b"".join(units[:300]), dict(ss=9), False),
+        "serial opus sample -> ssJ": (opus, dict(ss=9), False),
+    }
+
+
 def times(args) -> None:
     cs = smoke(args.tree)
     import numpy as np
@@ -108,8 +135,9 @@ def times(args) -> None:
     build.build()
     name = label(args.tree)
     card = cs.card_line()
-    for cell, (data, kw, truepeak) in (fleets(cs) if args.fleets
-                                       else cells(cs)).items():
+    table = (fleets(cs) if args.fleets else serial_cells(cs) if args.serial
+             else cells(cs))
+    for cell, (data, kw, truepeak) in table.items():
         if truepeak:
             os.environ["IAMF_TRUEPEAK"] = "1"
         try:
@@ -120,6 +148,9 @@ def times(args) -> None:
                     srv = MultiStreamServer(data, device=dev, **kw)
                     srv.decode_all()
                     return srv
+            elif args.serial:
+                def run():
+                    return cs._serial(dev, data, **kw)
             else:
                 def run():
                     return BatchedStreamDecoder(data, device=dev,
@@ -187,6 +218,7 @@ def main() -> int:
     t.add_argument("--reps", type=int, default=9)
     t.add_argument("--out")
     t.add_argument("--fleets", action="store_true")
+    t.add_argument("--serial", action="store_true")
     pa = sub.add_parser("pairs")
     pa.add_argument("file")
     pa.add_argument("parent")

@@ -20,7 +20,10 @@ model (tests/k7_model.py; fp32 FFT IMDCTs against the twin's fp32 matmul),
 and bit for bit across the ways of cutting a batch into runs; K9 bit for bit
 (each phase sums its taps in the twin's order), and K3 fed by it 0 LSB
 with an equal state; the binaural, 44.1 kHz, AAC and true-peak decodes
-1 LSB against the CPU run.
+1 LSB against the CPU run. The frame-serial pieces (dsp/limiter.Limiter,
+dsp/binaural.HRTFRenderer) at 960- and 1024-sample frames: one K3 (and
+K9) or K8 launch a frame against the twins, K3 0 LSB with an equal state,
+K8 1e-4; the serial IAMFDecoder 1 LSB against its CPU run.
 """
 
 import os
@@ -591,3 +594,101 @@ def test_server_on_card(dev):
     # the head-trim call)
     assert fleet_launches == [3, 3, 6]
     assert all(k.plain_on_cuda == 0 for k in kernels)
+
+
+@pytest.mark.parametrize("true_peak", [False, True])
+@pytest.mark.parametrize("frame", [960, 1024])
+def test_serial_limiter_per_frame(dev, frame, true_peak):
+    """The serial Limiter on the card, frame by frame through the
+    first-call swallow, a burst and the drain's delay_size zeros: one K3
+    launch a frame (and one K9 in true-peak mode), none for an empty
+    frame; 0 LSB and an equal state against the CPU twin."""
+    rng = np.random.RandomState(frame)
+    C = 6
+    cfg = limiter.LimiterConfig(channels=C, true_peak=true_peak)
+    ld, lc = limiter.Limiter(cfg, device=dev), limiter.Limiter(cfg, "cpu")
+    x = _noise(rng, C, 6 * frame, 0.3)
+    x[:, 2 * frame:3 * frame] *= 4.0
+    blocks = [x[:, i:i + frame] for i in range(0, 6 * frame, frame)]
+    blocks += [x[:, :0], torch.zeros(C, cfg.delay_size)]
+    for b in blocks:
+        k3, k9 = limiter.K3.launches, limiter.K9.launches
+        got = ld.process(b.to(dev), 16).cpu()
+        n = 1 if b.shape[1] else 0
+        assert limiter.K3.launches == k3 + n
+        assert limiter.K9.launches == k9 + (n if true_peak else 0)
+        want = lc.process(b, 16)
+        assert torch.equal(got, want)
+        assert ld.delay == lc.delay
+    for k, v in lc.state.items():
+        assert torch.equal(ld.state[k].cpu(), v), k
+    assert limiter.K3.plain_on_cuda == limiter.K9.plain_on_cuda == 0
+
+
+@pytest.mark.parametrize("frame", [960, 1024])
+@pytest.mark.parametrize("C", [10, 12])
+def test_serial_hrtf_renderer_per_frame(dev, C, frame):
+    """The serial HRTFRenderer on the card: one K8 launch a frame, each
+    frame and the carried overlap within 1e-4 of the CPU twin."""
+    rng = np.random.RandomState(C + frame)
+    rd = binaural.HRTFRenderer(K8_BEDS[C], frame, device=dev)
+    rc = binaural.HRTFRenderer(K8_BEDS[C], frame, device="cpu")
+    for _ in range(4):
+        x = _noise(rng, C, frame, 0.3)
+        launches = binaural.K8.launches
+        y = rd.render(x.to(dev))
+        assert binaural.K8.launches == launches + 1
+        assert (y.cpu() - rc.render(x)).abs().max() < 1e-4
+    assert (rd.overlap.cpu() - rc.overlap).abs().max() < 1e-4
+    assert binaural.K8.plain_on_cuda == 0
+
+
+SERIAL_PATHS = {
+    "pcm714_ssJ": lambda s: (s.build_pcm_layout_stream(
+        ChannelLayout.L714, n_frames=12, amp=0.9)[0], dict(ss=9)),
+    "m2b714": lambda s: (s.build_pcm_layout_stream(
+        ChannelLayout.L714, n_frames=12, amp=0.5, hrm=1)[0],
+        dict(binaural=True)),
+    "aac714_ssJ": lambda s: (s.build_aac_layout_stream(
+        ChannelLayout.L714, n_frames=12)[0], dict(ss=9)),
+    "scalable_ss1": lambda s: (s.build_scalable_pcm_stream(
+        n_frames=10, demix_modes=[0, 1, 2, 1, 0] * 2,
+        recon_gains=[(200, 180), (120, 90)])[0], dict(ss=1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SERIAL_PATHS))
+def test_serial_decoder_on_card(dev, name, monkeypatch):
+    """IAMFDecoder on the card against its CPU run: 1 LSB, the same
+    shape; K3 launched once for each frame that reaches the limiter (the
+    frames and the drain), K8 once for each binaural frame."""
+    from iamf_tpu_torch.api import IAMFDecoder
+    from iamf_tpu_torch.tools import streams
+    from test_torch_api import serial_decode
+
+    data, kw = SERIAL_PATHS[name](streams)
+    reach = {"limiter": 0, "hrtf": 0}
+    lim_process = limiter.Limiter.process
+    hrtf_render = binaural.HRTFRenderer.render
+
+    def counted_process(self, x, *a):
+        reach["limiter"] += x.shape[1] > 0
+        return lim_process(self, x, *a)
+
+    def counted_render(self, x):
+        reach["hrtf"] += 1
+        return hrtf_render(self, x)
+
+    monkeypatch.setattr(limiter.Limiter, "process", counted_process)
+    monkeypatch.setattr(binaural.HRTFRenderer, "render", counted_render)
+    for k in (limiter.K3, binaural.K8):
+        k.reset()
+    got = serial_decode(IAMFDecoder(device=dev), data, **kw)
+    k3, k8 = limiter.K3.launches, binaural.K8.launches
+    frames = dict(reach)
+    want = serial_decode(IAMFDecoder(device="cpu"), data, **kw)
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    assert (k3, k8) == (frames["limiter"], frames["hrtf"])
+    assert k3 >= 11 and (k8 >= 12) == name.startswith("m2b")
+    assert limiter.K3.plain_on_cuda == binaural.K8.plain_on_cuda == 0

@@ -4,12 +4,16 @@ core/stream.py, core/presentation.py, core/timeline.py and dsp/demix.py's
 host state machines are copies of the JAX package's (whose modules import
 JAX at module level); codecs/opus/decoder.py copies the spectrum export;
 dsp/binaural.py copies the HRIR model and the segment plan, dsp/resample.py
-the speexdsp filter design and DeviceResampler's precompute. Driven
+the speexdsp filter design, its streaming state and DeviceResampler's
+precompute; utils/wav.py, mp4/atoms.py and tools/vlogger.py are
+byte-identical copies (their imports are relative, so they resolve inside
+the port). Driven
 through both packages' BatchedStreamDecoder construction, or called with
 the same arguments, they must give equal arrays and equal configurations.
 """
 
 import dataclasses
+import filecmp
 import os
 
 import numpy as np
@@ -163,7 +167,7 @@ RATES = {44100: (64, 147, 160, 8085, 8800, 8116),
 
 @pytest.mark.parametrize("rate", sorted(RATES))
 def test_resample_host_copies_match(rate):
-    ours = pres.Resampler(rate, 48000)
+    ours = pres.Resampler(2, rate, 48000)
     ref = jres.Resampler(2, rate, 48000)
     for f in ("num", "den", "filt_len", "oversample", "cutoff", "direct",
               "input_latency"):
@@ -186,3 +190,12 @@ def test_resample_host_copies_match(rate):
     assert plan.input_latency == dr.host_params.input_latency
     for T in (1, 960, 44100 * 30):
         assert plan.n_out(T) == dr.n_out(T)
+
+
+@pytest.mark.parametrize("path", ["utils/wav.py", "mp4/atoms.py",
+                                  "tools/vlogger.py", "utils/__init__.py"])
+def test_serial_host_modules_identical(path):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert filecmp.cmp(os.path.join(root, "iamf_tpu", path),
+                       os.path.join(root, "iamf_tpu_torch", path),
+                       shallow=False)

@@ -195,6 +195,98 @@ def test_serving_paths_without_jax(tmp_path):
         assert np.array_equal(got[k], w), k
 
 
+NOJAX_SERIAL = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["iamf_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from iamf_tpu_torch.api import IAMFDecoder
+from iamf_tpu_torch.constants import ChannelLayout
+from iamf_tpu_torch.tools import streams
+
+
+def decode(data, **kw):
+    dec = IAMFDecoder(device="cpu")
+    if kw.get("binaural"):
+        dec.set_binaural()
+    else:
+        dec.set_sound_system(kw["ss"])
+    pos = dec.configure(data)
+    chunks = []
+    while pos < len(data):
+        consumed, pcm = dec.decode(data[pos:])
+        if consumed == 0 and pcm is None:
+            break
+        pos += consumed
+        if pcm is not None and len(pcm):
+            chunks.append(pcm)
+    _, pcm = dec.decode(None)
+    if pcm is not None and len(pcm):
+        chunks.append(pcm)
+    return np.concatenate(chunks)
+
+
+sample = open(sys.argv[1] + "/iamf_tpu/data/sample_opus_714.iamf",
+              "rb").read()
+np.savez(sys.argv[2], sample=decode(sample, ss=9),
+         binaural=decode(streams.build_pcm_layout_stream(
+             ChannelLayout.L714, n_frames=5, hrm=1)[0], binaural=True))
+assert not any(m.split(".")[0] in ("jax", "iamf_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("NOJAX-OK")
+"""
+
+
+def test_serial_decoder_without_jax(tmp_path):
+    """The frame-serial IAMFDecoder(device="cpu") decodes the Opus sample
+    and a binaural (M2B) PCM stream with JAX and the JAX package blocked,
+    held here to iamf_tpu.api.IAMFDecoder on the same bytes: <= 1 LSB,
+    same shape."""
+    import numpy as np
+
+    import vectors
+    from iamf_tpu.constants import ChannelLayout
+    from test_torch_api import serial_decode
+    from iamf_tpu.api import IAMFDecoder as Jax
+
+    out = tmp_path / "out.npz"
+    r = subprocess.run([sys.executable, "-c", NOJAX_SERIAL, ROOT, str(out)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX-OK" in r.stdout
+    got = np.load(out)
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    want = {
+        "sample": serial_decode(Jax(), sample, ss=9),
+        "binaural": serial_decode(Jax(), vectors.build_pcm_layout_stream(
+            ChannelLayout.L714, n_frames=5, hrm=1)[0], binaural=True),
+    }
+    for k, w in want.items():
+        assert got[k].shape == w.shape and got[k].dtype == w.dtype, k
+        d = np.abs(got[k].astype(np.int32) - w.astype(np.int32)).max()
+        assert d <= 1, f"{k}: max|diff| {d} LSB"
+
+
+def test_serial_decoder_defaults_to_the_card():
+    """IAMFDecoder() runs on the card: with none visible it raises, as do
+    the serial pieces it builds on a CUDA request; nothing falls back to
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: this checks the refusal")
+    from iamf_tpu_torch.api import IAMFDecoder
+    from iamf_tpu_torch.constants import ChannelLayout
+    from iamf_tpu_torch.dsp.binaural import HRTFRenderer
+    from iamf_tpu_torch.dsp.limiter import Limiter, LimiterConfig
+
+    for make in (IAMFDecoder, lambda: IAMFDecoder(device="cuda"),
+                 lambda: Limiter(LimiterConfig()),
+                 lambda: HRTFRenderer(ChannelLayout.STEREO, 960)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
 def test_sources_import_no_jax():
     """No module of the port and not chip_smoke.py imports JAX or the JAX
     package, at module level or inside a function (relative imports stay
@@ -205,7 +297,8 @@ def test_sources_import_no_jax():
                   if f.endswith(".py")]
     assert len(paths) > 30
     for new in ("core/serving.py", "mp4/demux.py", "mp4/iamf_track.py",
-                "tools/mp4builder.py"):
+                "tools/mp4builder.py", "api.py", "utils/wav.py",
+                "mp4/atoms.py", "tools/vlogger.py", "tools/player.py"):
         assert os.path.join(ROOT, "iamf_tpu_torch", new) in paths, new
     bad = []
     for path in paths:
