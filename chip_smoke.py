@@ -101,11 +101,27 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      frames that reach the limiter and the HRTF renderer; a short true-peak
      run (K9 once a frame); a configure(None) re-target mid-stream (J,
      5.1, binaural); the port's player (-o2 -s9, and -i1 on the sample
-     in MP4) on the card against the CPU player's WAV.
+     in MP4) on the card against the CPU player's WAV;
+ 17. the CELT device entropy stages on the Opus sample: the native decoder
+     taps its 7,751 PVQ leaves and the band records of its 32 mono frames
+     once (tools/celt_taps.py); the path a user calls,
+     device_leaf.reconstruct (K11 then K12, one launch each) on every
+     leaf and device_bands.run_frame (K13, the 32 frames in one launch)
+     on band_pack's packed tables, runs with the launch counts set to 0
+     just before it and is held to the taps (leaves rel 1e-5 of the tap's
+     first 32 coefficients, spectra rel 2e-5 of each frame's peak, the
+     emitted end seeds and the collapse masks equal); then K11 bit for
+     bit against its twin and the native walk (also walk order and
+     n_max = 24), K12 within rel 1e-6 of each row's peak of its twin
+     (the normalization alone and the LCG entries bit for bit), K13
+     within rel 2e-5 with equal seeds and collapse masks and equal to its
+     F = 1 calls bit for bit, each with its times, its twin's, its bound
+     and, for the rotations, one torch.bmm of the gathered bank.
 Each phase prints its wall.
 Every kernel's launch count in the kernels line comes from the run of the
 path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
-resampled one, K7 the AAC one, K9 the true-peak one), with the counts set
+resampled one, K7 the AAC one, K9 the true-peak one, K11-K13 phase 17's
+path; K12's count sums its three entries), with the counts set
 to 0 just before that run; its
 bound_ms is the larger of bytes over 3.35 TB/s and operations over the
 peak of their type (H100 SXM), from the row's own inputs, counting the
@@ -2118,9 +2134,262 @@ def serial_phase(dev, tag, kernels):
         shutil.rmtree(out_dir)
 
 
+# --- phase 17: the CELT device entropy stages ---------------------------------
+
+INT32_OPS = 16.7e12  # 64 INT32 lanes an SM a clock x 132 SMs x 1.98 GHz
+
+
+def k11_ops(n) -> float:
+    """The fewest integer operations of cwrsi on these leaves: a compare,
+    a subtraction and the sign of a coefficient for each dimension the
+    walk takes (n - 2 a leaf), and the n = 2 and n = 1 closed forms
+    (about ten); the searches' probes are not counted."""
+    n = np.asarray(n, np.int64)
+    return float(3 * np.maximum(n - 2, 0).sum() + 10 * len(n))
+
+
+def k13_bytes(bt, lt, seeds, cfg_used, banks) -> int:
+    """K13's bytes on these frames: the packed tables, the seeds and, of
+    the configuration banks, the [N, N] pre and post matrices that the
+    frames select (each once), the cm and B-mask rows, sqrt(N) and the
+    LCG tables; out the spectra, seeds and collapse masks."""
+    from iamf_tpu_torch.codecs.opus import device_bands as db
+
+    sizes = db.band_sizes()
+    mats = sum(2 * int(sizes[i]) ** 2 * 4 for i, _ in cfg_used)
+    F = seeds.shape[0]
+    return (nbytes(*bt.values(), *lt.values(), seeds) + mats
+            + len(cfg_used) * (16 + 1) * 4 + nbytes(banks["sq"], banks["lcg"])
+            + F * (db.NBINS + 1 + db.NBANDS) * 4)
+
+
+def k13_ops(bt) -> float:
+    """K13's fewest fp32 operations: the two [N, N] matvecs of every band
+    of every frame (2 N^2 each; the slots' placement and noise are a few
+    operations a bin)."""
+    from iamf_tpu_torch.codecs.opus import device_bands as db
+
+    sizes = db.band_sizes().astype(np.float64)
+    F = bt["present"].shape[0]
+    return float(F * (4 * sizes ** 2 + 8 * sizes).sum())
+
+
+def celt_phase(dev, tag):
+    """The device CELT entropy stages on the Opus sample: the native
+    decoder taps its leaves and band records once (tools/celt_taps.py),
+    then the path a user calls (device_leaf.reconstruct on all 7,751
+    leaves, band_pack.pack_frame and device_bands.pack_tensors on the 32
+    mono frames, device_bands.run_frame on all 32 in one call) runs with
+    the launch counts set to 0 just before it; then each kernel against
+    its plain twin on the card and against the native taps, with its
+    times, bound and yardstick."""
+    from iamf_tpu_torch import convert
+    from iamf_tpu_torch.codecs.opus import band_pack
+    from iamf_tpu_torch.codecs.opus import device_bands as db
+    from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
+    from iamf_tpu_torch.codecs.opus import device_leaf as dl
+    from iamf_tpu_torch.tools import celt_taps
+
+    kernels = (dc.K11, *dl.KERNELS, db.K13)
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    t = time.perf_counter()
+    frames = celt_taps.tap_stream(data)
+    n, k, idx, gain, spread, blocks, xo = celt_taps.all_leaves(frames)
+    mono = [f for f in frames if f.tap_C == 1]
+    print(f"celt taps: {len(frames)} frames ({len(mono)} mono, "
+          f"{sum(f.transient for f in mono)} transient), {len(n)} PVQ "
+          f"leaves (n {n.min()}-{n.max()}, k <= {k.max()}), "
+          f"{time.perf_counter() - t:.2f} s")
+    check(len(n) == 7751 and len(mono) == 32, "the sample's taps changed")
+
+    def path():
+        X = dl.reconstruct(n, k, idx, gain, spread, blocks, device=dev)
+        vecs = X.cpu().numpy()
+        bts, lts, seeds, off = [], [], [], 0
+        for f in frames:
+            L = len(f.leaves[0])
+            if f.tap_C == 1:
+                pf = band_pack.pack_frame(f.recs)
+                check(db.packable(pf), "a mono frame is not packable")
+                bt, lt = db.pack_tensors(pf, list(vecs[off:off + L]))
+                bts.append(bt)
+                lts.append(lt)
+                seeds.append(pf.seed0)
+            off += L
+        db_in = (bts, lts, seeds)
+        return X, db_in, db.run_frame(bts, lts, seeds, device=dev)
+
+    path()  # warm-up: builds the banks on the card
+    for kk in kernels:
+        kk.reset()
+    X, (bts, lts, seeds), (spec, seed, coll) = path()
+    torch.cuda.synchronize()
+    launches = {kk.symbol: kk.launches for kk in kernels}
+    plain = {kk.symbol: kk.plain_on_cuda for kk in kernels}
+    print(f"celt path: launches {launches}; plain twins on CUDA {plain}")
+    check(launches[dc.K11.symbol] == launches[dl.K12.symbol]
+          == launches[db.K13.symbol] == 1,
+          f"the celt path's kernels launched other than once: {launches}")
+    check(not any(plain.values()), f"a plain twin ran on CUDA: {plain}")
+    # the path's result against the native taps
+    Xh = X.cpu().numpy()
+    W = celt_taps.LEAF_X
+    mask = np.arange(W)[None, :] < np.minimum(n, W)[:, None]
+    a, b = np.where(mask, xo, 0), np.where(mask, Xh[:, :W], 0)
+    rel_leaf = float((np.abs(a - b) / np.maximum(
+        np.abs(a).max(axis=1, keepdims=True), 1e-3)).max())
+    want = np.stack([f.X[0] for f in mono])
+    sh = spec.cpu().numpy()
+    rel_tap = float((np.abs(sh - want).max(axis=1)
+                     / np.maximum(np.abs(want).max(axis=1), 1e-3)).max())
+    seeds_ok = np.array_equal(seed.cpu().numpy(),
+                              np.array([f.seed_out for f in mono], np.uint32))
+    present = np.stack([bt["present"] for bt in bts]) > 0
+    coll_ok = np.array_equal(coll.cpu().numpy()[present],
+                             np.stack([f.collapse[0] for f in mono])[present])
+    print(f"celt path vs the native taps: leaves rel {rel_leaf:.3e} (bound "
+          f"1e-5), spectra rel {rel_tap:.3e} (bound 2e-5), end seeds equal "
+          f"{seeds_ok}, collapse masks equal {coll_ok}")
+    check(rel_leaf < 1e-5 and rel_tap < 2e-5 and seeds_ok and coll_ok,
+          "the celt path disagrees with the native taps")
+
+    rows = []
+    # K11
+    lb = convert.leaf_batch(n, k, idx, gain, spread, blocks, dev)
+    y = dc.cwrsi_cuda(lb["n"], lb["k"], lb["idx"])
+    ok = torch.equal(y, dc.cwrsi_plain(lb["n"], lb["k"], lb["idx"]))
+    native = np.array_equal(y.cpu().numpy(), dc.host_reference(n, k, idx))
+    sel = n <= 24
+    lbs = convert.leaf_batch(n[sel], k[sel], idx[sel], gain[sel],
+                             spread[sel], blocks[sel], dev)
+    lay = [torch.equal(dc.cwrsi_cuda(lbs["n"], lbs["k"], lbs["idx"], al, 24),
+                       dc.cwrsi_plain(lbs["n"], lbs["k"], lbs["idx"], al, 24))
+           for al in (True, False)]
+    print(f"K11 cwrsi [{len(n)} leaves]: equal to its twin {ok}, to the "
+          f"native walk {native}; n_max 24 ({int(sel.sum())} leaves) aligned "
+          f"and walk order equal {lay}")
+    check(ok and native and all(lay), "K11 disagrees")
+    args = (lb["n"], lb["k"], lb["idx"])
+    ms, plain_ms = _twin_times(tag, f"K11 [{len(n)} leaves]",
+                               lambda: dc.cwrsi_cuda(*args),
+                               lambda: dc.cwrsi_plain(*args), plain_reps=5)
+    nd = device_launches(lambda: dc.cwrsi_cuda(*args))
+    check(nd == 1, f"K11 made {nd} device launches a call")
+    moved = nbytes(*args, dc.rows_on(dev), y)
+    ops = k11_ops(n)
+    b = bound(moved, ops, INT32_OPS)
+    print(f"K11 bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
+          f"{moved / 1e6:.2f} MB, {ops / 1e6:.2f} M integer operations)")
+    rows.append(dict(name="k11_cwrsi", max_abs_err=0.0, ms=ms,
+                     plain_ms=plain_ms, library_ms=None, **b))
+
+    # K12: normalize and rotate (the path's entry), then the LCG entries
+    cfg, bank = dl.rotation_plan(n, k, spread, blocks)
+    cfg_t = torch.from_numpy(cfg).to(dev)
+    bank_t = torch.from_numpy(bank).to(dev)
+    g = lb["gain"]
+    got = dl.normalize_rotate(y, g, cfg_t, bank_t)
+    ref = dl.normalize_rotate_plain(y, g, cfg_t, bank_t)
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs().amax(1) / ref.abs().amax(1)).max())
+    norm_eq = torch.equal(dl.normalize_pulses(y, g),
+                          dl.normalize_rotate_plain(y, g))
+    rot = int((cfg >= 0).sum())
+    print(f"K12 normalize + rotate [{len(n)} leaves, {rot} rotating, "
+          f"{len(bank)} configurations]: rel {rel:.3e} of each row's peak "
+          f"(bound 1e-6), max|diff| {err:.3e}; the normalization alone "
+          f"bit-equal {norm_eq}")
+    check(rel <= 1e-6 and norm_eq, "K12 disagrees with its twin")
+    rng = np.random.default_rng(17)
+    draws = torch.from_numpy(rng.choice([0, 0, 0, 4, 8, 16, 22, 176],
+                                        len(n)).astype(np.int32)).to(dev)
+    entry = dl.lcg_leaf_entry_seeds(0xDEADBEEF, draws)
+    fill = dl.lcg_noise_fill(entry, draws, 176)
+    lcg_ok = (torch.equal(entry.view(torch.int32),
+                          dl.lcg_leaf_entry_seeds(0xDEADBEEF, draws.cpu()
+                                                  ).view(torch.int32).to(dev))
+              and torch.equal(fill.view(torch.int32),
+                              dl.lcg_noise_fill(entry.cpu(), None, 176).view(
+                                  torch.int32).to(dev)))
+    print(f"K12 LCG entry seeds [{len(n)}] and draws [{len(n)}, 176]: equal "
+          f"to the twins {lcg_ok}")
+    check(lcg_ok, "K12's LCG disagrees with its twin")
+    ms, plain_ms = _twin_times(
+        tag, f"K12 normalize + rotate [{len(n)} leaves]",
+        lambda: dl.normalize_rotate(y, g, cfg_t, bank_t),
+        lambda: dl.normalize_rotate_plain(y, g, cfg_t, bank_t), plain_reps=5)
+    nd = device_launches(lambda: dl.normalize_rotate(y, g, cfg_t, bank_t))
+    check(nd == 1, f"K12 made {nd} device launches a call")
+    _twin_times(tag, f"K12 LCG entry seeds [{len(n)}]",
+                lambda: dl.lcg_leaf_entry_seeds(0xDEADBEEF, draws),
+                lambda: dl.lcg_leaf_entry_seeds(0xDEADBEEF, draws.cpu()),
+                plain_reps=5)
+    used = np.unique(cfg[cfg >= 0])
+    moved = nbytes(y, g, cfg_t, got) + len(used) * bank[0].nbytes
+    ops = float(len(n) * 3 * dc.N_MAX + rot * 2 * dl.ROT_W ** 2)
+    b = bound(moved, ops, FP32_FLOPS)
+    print(f"K12 bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
+          f"{moved / 1e6:.2f} MB, {ops / 1e6:.2f} M flops)")
+    sel_t = torch.from_numpy(np.flatnonzero(cfg >= 0)).to(dev)
+    mats = bank_t[cfg_t[sel_t].long()]
+    xs = dl.normalize_pulses(y, g)[sel_t][:, :, None]
+    bmm = torch.bmm(mats, xs)[:, :, 0]
+    e = float(((bmm - got[sel_t]).abs().amax(1)
+               / got[sel_t].abs().amax(1)).max())
+    check(e <= 1e-6, f"torch.bmm disagrees with K12's rotations: {e}")
+    lib_ms = cuda_ms(lambda: torch.bmm(mats, xs))
+    lib_dev, _ = device_ms(lambda: torch.bmm(mats, xs), "torch.bmm for K12")
+    print(f"torch.bmm of the gathered bank [{rot}, 96, 96] x [{rot}, 96, 1] "
+          f"(the rotations alone): {lib_ms:.4f} ms per call, device "
+          f"{lib_dev:.4f} ms, rel {e:.3e} vs K12 {tag}")
+    rows.append(dict(name="k12_leaf", max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, library_ms=lib_ms, **b))
+
+    # K13: the 32 frames in one launch against the twin and F = 1 calls
+    bt, lt = convert.packed_frame(bts, lts, dev)
+    s0 = torch.from_numpy(np.array(seeds, np.uint32)).to(dev)
+    sp, kp, cp = db.run_frames_plain(bt, lt, s0)
+    sc, kc, cc = db.run_frames_cuda(bt, lt, s0)
+    err = float((sc - sp).abs().max())
+    rel = float(((sc - sp).abs().amax(1) / sp.abs().amax(1)).max())
+    exact = (torch.equal(kc.view(torch.int32), kp.view(torch.int32))
+             and torch.equal(cc.view(torch.int32), cp.view(torch.int32)))
+    one = all(torch.equal(db.run_frame(bts[j], lts[j], seeds[j],
+                                       device=dev)[0], sc[j])
+              for j in (0, 7, 31))
+    print(f"K13 band walk [{len(bts)} frames]: spectra rel {rel:.3e} of each "
+          f"frame's peak vs its twin (bound 2e-5), max|diff| {err:.3e}; seeds "
+          f"and collapse masks equal {exact}; frames 0, 7, 31 as F = 1 calls "
+          f"bit-equal {one}")
+    check(rel < 2e-5 and exact and one, "K13 disagrees with its twin")
+    ms, plain_ms = _twin_times(tag, f"K13 [{len(bts)} frames]",
+                               lambda: db.run_frames_cuda(bt, lt, s0),
+                               lambda: db.run_frames_plain(bt, lt, s0),
+                               plain_reps=3)
+    nd = device_launches(lambda: db.run_frames_cuda(bt, lt, s0))
+    check(nd == 1, f"K13 made {nd} device launches a call")
+    banks = db.device_banks(dev)
+    used = {(i, int(c)) for btf in bts for i, c in enumerate(btf["cfg_id"])}
+    moved = k13_bytes(bt, lt, s0, used, banks)
+    ops = k13_ops(bt)
+    b = bound(moved, ops, FP32_FLOPS)
+    print(f"K13 bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
+          f"{moved / 1e6:.2f} MB, {ops / 1e6:.2f} M flops)")
+    rows.append(dict(name="k13_bands", max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, library_ms=None, **b))
+    return rows, {dc.K11.symbol: launches[dc.K11.symbol],
+                  dl.K12.symbol: sum(launches[kk.symbol]
+                                     for kk in dl.KERNELS),
+                  db.K13.symbol: launches[db.K13.symbol]}
+
+
 def main() -> int:
     from iamf_tpu_torch import require_cuda
     from iamf_tpu_torch.codecs.aac.synth import K7
+    from iamf_tpu_torch.codecs.opus.device_bands import K13
+    from iamf_tpu_torch.codecs.opus.device_cwrsi import K11
+    from iamf_tpu_torch.codecs.opus.device_leaf import K12
     from iamf_tpu_torch.codecs.opus.imdct import K1
     from iamf_tpu_torch.codecs.opus.synth import K2
     from iamf_tpu_torch.dsp.binaural import K8
@@ -2170,7 +2439,11 @@ def main() -> int:
     phase("14 reconfigure", reconfigure_phase, dev, tag, kernels)
     phase("15 mp4", mp4_phase, dev, tag, kernels)
     phase("16 serial", serial_phase, dev, tag, kernels)
-    print(f"phases 2-16: {time.perf_counter() - t_all:.1f} s wall")
+    celt_rows, celt_launches = phase("17 celt device stages", celt_phase,
+                                     dev, tag)
+    rows += celt_rows
+    launches.update(celt_launches)
+    print(f"phases 2-17: {time.perf_counter() - t_all:.1f} s wall")
 
     meta = {
         "k1_imdct_tdac": ("iamf_tpu_torch/csrc/imdct.cu",
@@ -2187,6 +2460,12 @@ def main() -> int:
                          "iamf_tpu/codecs/aac/tpu_synth.py:148", K7),
         "k9_truepeak": ("iamf_tpu_torch/csrc/truepeak.cu",
                         "iamf_tpu/dsp/limiter.py:132", K9),
+        "k11_cwrsi": ("iamf_tpu_torch/csrc/celt_cwrsi.cu",
+                      "iamf_tpu/codecs/opus/device_cwrsi.py:84", K11),
+        "k12_leaf": ("iamf_tpu_torch/csrc/celt_leaf.cu",
+                     "iamf_tpu/codecs/opus/device_leaf.py:86", K12),
+        "k13_bands": ("iamf_tpu_torch/csrc/celt_bands.cu",
+                      "iamf_tpu/codecs/opus/device_bands.py:263", K13),
     }
     table = []
     for r in rows:

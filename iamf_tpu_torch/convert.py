@@ -15,6 +15,12 @@ given device, so both packages can start a batch from identical state.
   state, as dsp/limiter.Limiter carries it (a stream axis of 1)
 - ``hrtf_overlap``: the frame-serial iamf_tpu.dsp.binaural.HRTFRenderer's
   overlap, as dsp/binaural.HRTFRenderer carries it ([1, 2, taps-1])
+- ``leaf_batch``: the PVQ leaf arrays the native leaf tap gives (the input
+  of iamf_tpu.codecs.opus.device_leaf.reconstruct), as
+  codecs/opus/device_leaf.reconstruct sends them to the device
+- ``packed_frame``: device_bands.pack_tensors' numpy dicts of one frame or
+  of several, as codecs/opus/device_bands.run_frame takes them (a leading
+  frame axis)
 
 The port's pipeline takes a leading stream axis on its parameters and
 carries (core/pipeline.py). ``stream_params``, ``pipe_carry`` and
@@ -190,3 +196,26 @@ def synth_carry(carry, device) -> SynthCarry:
 def aac_carry(carry, device) -> torch.Tensor:
     """The AAC filterbank's overlap carry [L, 1024]."""
     return _t(carry, device, np.float32)
+
+
+def leaf_batch(n, k, idx, gain, spread, blocks, device) -> dict:
+    """PVQ leaf arrays [L] -> tensors: n, k, spread, blocks int32, idx
+    uint32, gain float32."""
+    return {"n": _t(n, device, np.int32), "k": _t(k, device, np.int32),
+            "idx": _t(idx, device, np.uint32),
+            "gain": _t(gain, device, np.float32),
+            "spread": _t(spread, device, np.int32),
+            "blocks": _t(blocks, device, np.int32)}
+
+
+def packed_frame(bt, lt, device) -> tuple[dict, dict]:
+    """device_bands.pack_tensors' (bt, lt) of one frame, or sequences of
+    them, -> (bt, lt) dicts of tensors with a leading frame axis F (1 for
+    one frame), each key in its numpy dtype (fill_cols uint32)."""
+    bts, lts = ([bt], [lt]) if isinstance(bt, dict) else (bt, lt)
+
+    def stack(ds):
+        return {key: torch.from_numpy(np.stack([d[key] for d in ds])).to(
+            device) for key in ds[0]}
+
+    return stack(bts), stack(lts)

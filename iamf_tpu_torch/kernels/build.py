@@ -115,6 +115,7 @@ def load():
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint32
 F = ctypes.c_float
 
 

@@ -692,3 +692,123 @@ def test_serial_decoder_on_card(dev, name, monkeypatch):
     assert (k3, k8) == (frames["limiter"], frames["hrtf"])
     assert k3 >= 11 and (k8 >= 12) == name.startswith("m2b")
     assert limiter.K3.plain_on_cuda == binaural.K8.plain_on_cuda == 0
+
+
+# ---- K11-K13: the CELT device entropy stages on the Opus sample -----------
+
+@pytest.fixture(scope="module")
+def celt():
+    """The native taps of the Opus sample: its frames, all their leaves,
+    and the 32 mono frames' packed tensors (on the CPU twin's leaf
+    vectors)."""
+    from iamf_tpu_torch.codecs.opus import band_pack, device_bands, \
+        device_leaf
+    from iamf_tpu_torch.tools import celt_taps
+
+    frames = celt_taps.tap_stream(open(os.path.join(
+        ROOT, "iamf_tpu", "data", "sample_opus_714.iamf"), "rb").read())
+    leaves = celt_taps.all_leaves(frames)
+    vecs = device_leaf.reconstruct(*leaves[:6], device="cpu").numpy()
+    bts, lts, seeds, off = [], [], [], 0
+    for f in frames:
+        L = len(f.leaves[0])
+        if f.tap_C == 1:
+            pf = band_pack.pack_frame(f.recs)
+            bt, lt = device_bands.pack_tensors(pf, list(vecs[off:off + L]))
+            bts.append(bt)
+            lts.append(lt)
+            seeds.append(pf.seed0)
+        off += L
+    return frames, leaves, bts, lts, seeds
+
+
+def _i32(t):
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+@pytest.mark.parametrize("align,n_max", [(True, 96), (False, 96),
+                                         (True, 24), (False, 24)])
+def test_k11_matches_plain(dev, celt, align, n_max):
+    """K11 bit for bit against its twin on the sample's leaves of n <=
+    n_max, and the aligned rows against the native walk."""
+    from iamf_tpu_torch import convert
+    from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
+
+    n, k, idx = celt[1][:3]
+    sel = n <= n_max
+    lb = convert.leaf_batch(*(a[sel] for a in celt[1][:6]), "cpu")
+    args = [lb[key] for key in ("n", "k", "idx")]
+    dc.K11.reset()
+    got = dc.cwrsi_batch(*(a.to(dev) for a in args), align, n_max)
+    assert dc.K11.launches == 1 and dc.K11.plain_on_cuda == 0
+    want = dc.cwrsi_plain(*args, align, n_max)
+    assert torch.equal(got.cpu(), want)
+    if align:
+        assert np.array_equal(got.cpu().numpy(), dc.host_reference(
+            n[sel], k[sel], idx[sel])[:, :n_max])
+
+
+def test_k12_matches_plain(dev, celt):
+    """K12's normalize-and-rotate within rel 1e-6 of each row's peak of
+    its twin (the normalization alone bit for bit), its rotation alone
+    likewise, and the LCG entries bit for bit."""
+    from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
+    from iamf_tpu_torch.codecs.opus import device_leaf as dl
+
+    n, k, idx, gain, spread, blocks, _ = celt[1]
+    cfg, bank = dl.rotation_plan(n, k, spread, blocks)
+    y = dc.cwrsi_plain(*(torch.from_numpy(a) for a in (n, k, idx)))
+    g = torch.from_numpy(gain)
+    c, b = torch.from_numpy(cfg), torch.from_numpy(bank)
+    want = dl.normalize_rotate_plain(y, g, c, b)
+    got = dl.normalize_rotate(y.to(dev), g.to(dev), c.to(dev), b.to(dev))
+    rel = ((got.cpu() - want).abs().amax(1) / want.abs().amax(1)).max()
+    assert float(rel) <= 1e-6
+    assert torch.equal(dl.normalize_pulses(y.to(dev), g.to(dev)).cpu(),
+                       dl.normalize_rotate_plain(y, g))
+    sel = torch.from_numpy(np.flatnonzero(cfg >= 0))
+    r = dl.apply_rotations(want[sel].to(dev), c[sel].to(dev), b.to(dev))
+    rw = dl.apply_rotations(want[sel], c[sel], b)
+    assert float(((r.cpu() - rw).abs().amax(1) / rw.abs().amax(1)).max()) \
+        <= 1e-6
+    rng = np.random.default_rng(3)
+    draws = torch.from_numpy(rng.choice([0, 0, 4, 8, 176, 700], 3000
+                                        ).astype(np.int32))
+    for seed in (0, 0xDEADBEEF):
+        e_d = dl.lcg_leaf_entry_seeds(seed, draws.to(dev))
+        e_p = dl.lcg_leaf_entry_seeds(seed, draws)
+        assert torch.equal(_i32(e_d).cpu(), _i32(e_p))
+        assert torch.equal(_i32(dl.lcg_noise_fill(e_d, None, 176)).cpu(),
+                           _i32(dl.lcg_noise_fill(e_p, None, 176)))
+
+
+def test_k13_batch_equals_frames(dev, celt):
+    """K13 over the sample's 32 mono frames in one launch: each frame bit
+    for bit equal to its own F = 1 call, within rel 2e-5 of the twin's
+    spectrum with equal seeds and collapse masks, and on the native
+    taps."""
+    from iamf_tpu_torch import convert
+    from iamf_tpu_torch.codecs.opus import device_bands as db
+
+    frames, _, bts, lts, seeds = celt
+    db.K13.reset()
+    spec, seed, coll = db.run_frame(bts, lts, seeds, device=dev)
+    assert db.K13.launches == 1 and db.K13.plain_on_cuda == 0
+    for j in range(len(bts)):
+        s1, k1, c1 = db.run_frame(bts[j], lts[j], seeds[j], device=dev)
+        assert torch.equal(s1, spec[j])
+        assert int(_i32(k1)) == int(_i32(seed[j]))
+        assert torch.equal(_i32(c1), _i32(coll[j]))
+    bt, lt = convert.packed_frame(bts, lts, "cpu")
+    sp, kp, cp = db.run_frames_plain(
+        bt, lt, torch.from_numpy(np.array(seeds, np.uint32)))
+    rel = ((spec.cpu() - sp).abs().amax(1) / sp.abs().amax(1)).max()
+    assert float(rel) < 2e-5
+    assert torch.equal(_i32(seed).cpu(), _i32(kp))
+    assert torch.equal(_i32(coll).cpu(), _i32(cp))
+    mono = [f for f in frames if f.tap_C == 1]
+    assert np.array_equal(seed.cpu().numpy(),
+                          np.array([f.seed_out for f in mono], np.uint32))
+    want = np.stack([f.X[0] for f in mono])
+    got = spec.cpu().numpy()
+    assert (np.abs(got - want).max(1) / np.abs(want).max(1)).max() < 2e-5

@@ -199,3 +199,25 @@ def test_serial_host_modules_identical(path):
     assert filecmp.cmp(os.path.join(root, "iamf_tpu", path),
                        os.path.join(root, "iamf_tpu_torch", path),
                        shallow=False)
+
+
+def test_stage_timer_and_loggers(capsys):
+    """utils/logging.py (a byte-identical copy, test_torch_celt_device.py
+    holds it to the original): StageTimer's report as tests/test_aux.py
+    checks the JAX one, and the levelled loggers print what the level mask
+    lets through to stderr."""
+    from iamf_tpu_torch.utils import logging as plog
+
+    t = plog.StageTimer()
+    t.add("decode", 0.5)
+    t.add("render", 0.2)
+    rep = t.report(10.0)
+    assert "decode" in rep and "TOTAL" in rep and "x20" in rep
+    plog.set_level("ew")
+    try:
+        plog.loge("K13", "shown")
+        plog.logd("K13", "hidden")
+        err = capsys.readouterr().err
+        assert "[E][K13] shown" in err and "hidden" not in err
+    finally:
+        plog.set_level(os.environ.get("IAMF_DEBUG", "ew"))

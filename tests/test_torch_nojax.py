@@ -298,7 +298,11 @@ def test_sources_import_no_jax():
     assert len(paths) > 30
     for new in ("core/serving.py", "mp4/demux.py", "mp4/iamf_track.py",
                 "tools/mp4builder.py", "api.py", "utils/wav.py",
-                "mp4/atoms.py", "tools/vlogger.py", "tools/player.py"):
+                "mp4/atoms.py", "tools/vlogger.py", "tools/player.py",
+                "codecs/opus/device_cwrsi.py", "codecs/opus/device_leaf.py",
+                "codecs/opus/device_bands.py", "codecs/opus/band_replay.py",
+                "codecs/opus/band_pack.py", "tools/celt_taps.py",
+                "utils/logging.py"):
         assert os.path.join(ROOT, "iamf_tpu_torch", new) in paths, new
     bad = []
     for path in paths:
@@ -381,7 +385,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel's wrapper never hands a CPU pointer to the device: it
     raises before building or loading anything."""
     from iamf_tpu_torch.codecs.aac import synth as aac_synth
-    from iamf_tpu_torch.codecs.opus import imdct, synth
+    from iamf_tpu_torch.codecs.opus import (device_bands, device_cwrsi,
+                                            device_leaf, imdct, synth)
     from iamf_tpu_torch.constants import ChannelLayout
     from iamf_tpu_torch.dsp import binaural, limiter, resample
 
@@ -408,7 +413,110 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 2, 3, dtype=torch.int32), torch.zeros(2, 1024)),
         "K9": lambda: limiter.truepeak_cuda(torch.zeros(1, 2, 960),
                                             torch.zeros(1, 2, 11)),
+        "K11": lambda: device_cwrsi.cwrsi_cuda(
+            torch.full((3,), 4, dtype=torch.int32),
+            torch.ones(3, dtype=torch.int32),
+            torch.zeros(3, dtype=torch.int32).view(torch.uint32)),
+        "K12": lambda: device_leaf._normrot_cuda(
+            torch.ones(2, 96, dtype=torch.int32), None, torch.ones(2), None,
+            None, 2, 96),
+        "K12 LCG": lambda: device_leaf.K12_ENTRY(
+            0, torch.zeros(3, dtype=torch.int32), 3,
+            torch.zeros(2, 4097, dtype=torch.int32),
+            torch.zeros(3, dtype=torch.int32)),
+        "K13": lambda: device_bands.run_frames_cuda(*_one_packed_frame()),
     }
     for name, call in calls.items():
         with pytest.raises(ValueError, match="CUDA device"):
             call()
+
+
+def _one_packed_frame():
+    """An empty packed frame's tensors on the CPU (pack_tensors' defaults,
+    no band present) and its seed."""
+    from iamf_tpu_torch import convert
+    from iamf_tpu_torch.codecs.opus import band_pack, device_bands
+
+    pf = band_pack.PackedFrame(C=1, M=8, norm_offset=0, seed0=5, bands=[],
+                               leaves=[])
+    bt, lt = convert.packed_frame(*device_bands.pack_tensors(pf, []), "cpu")
+    return bt, lt, torch.tensor([5], dtype=torch.int32).view(torch.uint32)
+
+
+NOJAX_CELT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["iamf_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from iamf_tpu_torch.codecs.opus import band_pack, device_bands, device_leaf
+from iamf_tpu_torch.tools import celt_taps
+frames = celt_taps.tap_stream(open(
+    sys.argv[1] + "/iamf_tpu/data/sample_opus_714.iamf", "rb").read())
+n, k, idx, gain, spread, blocks, xo = celt_taps.all_leaves(frames)
+X = device_leaf.reconstruct(n, k, idx, gain, spread, blocks,
+                            device="cpu").numpy()
+mask = np.arange(32)[None, :] < np.minimum(n, 32)[:, None]
+a, b = np.where(mask, xo, 0), np.where(mask, X[:, :32], 0)
+assert (np.abs(a - b) / np.maximum(np.abs(a).max(1, keepdims=True),
+                                   1e-3)).max() < 1e-5
+off = 0
+for f in frames:
+    L = len(f.leaves[0])
+    if f.tap_C == 1:
+        pf = band_pack.pack_frame(f.recs)
+        bt, lt = device_bands.pack_tensors(pf, list(X[off:off + L]))
+        spec, seed, _ = device_bands.run_frame(bt, lt, pf.seed0,
+                                               device="cpu")
+        want = f.X[0]
+        assert np.abs(spec.numpy() - want).max() / np.abs(want).max() < 2e-5
+        assert int(seed) == f.seed_out
+    off += L
+np.save(sys.argv[2], X)
+assert not any(m.split(".")[0] in ("jax", "iamf_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("NOJAX-OK")
+"""
+
+
+def test_celt_device_stages_without_jax(tmp_path):
+    """The CELT entropy stages' twins on the Opus sample's taps with JAX
+    and the JAX package blocked: reconstruct on every leaf within rel
+    1e-5 of the native leaf tap, run_frame on each mono frame within rel
+    2e-5 of the band tap with the emitted end seed; the leaf vectors
+    equal the port's own run here."""
+    import numpy as np
+
+    from iamf_tpu_torch.codecs.opus import device_leaf
+    from iamf_tpu_torch.tools import celt_taps
+
+    out = tmp_path / "x.npy"
+    r = subprocess.run([sys.executable, "-c", NOJAX_CELT, ROOT, str(out)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX-OK" in r.stdout
+    leaves = celt_taps.all_leaves(celt_taps.tap_stream(open(os.path.join(
+        ROOT, "iamf_tpu", "data", "sample_opus_714.iamf"), "rb").read()))
+    want = device_leaf.reconstruct(*leaves[:6], device="cpu").numpy()
+    assert np.array_equal(np.load(out), want)
+
+
+def test_celt_entry_points_default_to_the_card():
+    """reconstruct and run_frame on numpy input run on the card unless
+    asked for the CPU: with no card visible they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: this checks the refusal")
+    import numpy as np
+
+    from iamf_tpu_torch.codecs.opus import band_pack, device_bands
+    from iamf_tpu_torch.codecs.opus import device_leaf
+
+    one = np.ones(1, np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_leaf.reconstruct(4 * one, one, np.zeros(1, np.uint32),
+                                np.ones(1, np.float32), one, one)
+    pf = band_pack.PackedFrame(C=1, M=8, norm_offset=0, seed0=5, bands=[],
+                               leaves=[])
+    bt, lt = device_bands.pack_tensors(pf, [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_bands.run_frame(bt, lt, 5)
