@@ -116,7 +116,10 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      (the normalization alone and the LCG entries bit for bit), K13
      within rel 2e-5 with equal seeds and collapse masks and equal to its
      F = 1 calls bit for bit, each with its times, its twin's, its bound
-     and, for the rotations, one torch.bmm of the gathered bank.
+     and, for the rotations, one torch.bmm of the gathered bank; then K12
+     in its apply_rotations mode on the same 833 rows against that bmm
+     (like for like: both take the normalized rows), within rel 1e-6 of
+     each row's peak of its twin and of bmm, with both times.
 Each phase prints its wall.
 Every kernel's launch count in the kernels line comes from the run of the
 path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
@@ -2148,30 +2151,103 @@ def k11_ops(n) -> float:
     return float(3 * np.maximum(n - 2, 0).sum() + 10 * len(n))
 
 
-def k13_bytes(bt, lt, seeds, cfg_used, banks) -> int:
-    """K13's bytes on these frames: the packed tables, the seeds and, of
-    the configuration banks, the [N, N] pre and post matrices that the
-    frames select (each once), the cm and B-mask rows, sqrt(N) and the
-    LCG tables; out the spectra, seeds and collapse masks."""
+def _k13_need(bt, lt):
+    """What K13's function needs of these frames (numpy): for each frame
+    and band, whether it is present and whether it folds; for each slot,
+    whether it is active, a q0 slot or a PVQ slot."""
     from iamf_tpu_torch.codecs.opus import device_bands as db
 
-    sizes = db.band_sizes()
-    mats = sum(2 * int(sizes[i]) ** 2 * 4 for i, _ in cfg_used)
-    F = seeds.shape[0]
-    return (nbytes(*bt.values(), *lt.values(), seeds) + mats
-            + len(cfg_used) * (16 + 1) * 4 + nbytes(banks["sq"], banks["lcg"])
-            + F * (db.NBINS + 1 + db.NBANDS) * 4)
+    b = {key: bt[key].cpu().numpy() for key in db.BT_KEYS}
+    k = lt["k"].cpu().numpy()
+    present = b["present"] > 0
+    return dict(b=b, present=present, fold=present & (b["has_lb"] > 0),
+                active=k > -2, q0=(k > -2) & (k <= 0), pvq=k > 0,
+                n=lt["n"].cpu().numpy())
 
 
-def k13_ops(bt) -> float:
-    """K13's fewest fp32 operations: the two [N, N] matvecs of every band
-    of every frame (2 N^2 each; the slots' placement and noise are a few
-    operations a bin)."""
+def k13_bytes(bt, lt) -> int:
+    """K13's bytes on these frames, counting what their data need: the
+    band fields, each slot's k (which says whether it is active), an
+    active slot's n, off, b_leaf and cm_shift, a q0 slot's gain and fill
+    map, a PVQ slot's n leaf coefficients, the seeds; of the configuration
+    banks, once for each (band, configuration) the frames select, the pre
+    matrix where the band folds and the post matrix, cm row and B-mask
+    where it is present, and sqrt(N); out the spectra, seeds and collapse
+    masks."""
     from iamf_tpu_torch.codecs.opus import device_bands as db
 
+    d = _k13_need(bt, lt)
+    F = d["present"].shape[0]
+    sizes = db.band_sizes().astype(np.int64)
+    band = np.broadcast_to(np.arange(db.NBANDS), d["present"].shape)
+    cfg = d["b"]["cfg_id"]
+    pre = set(zip(band[d["fold"]], cfg[d["fold"]]))
+    post = set(zip(band[d["present"]], cfg[d["present"]]))
+    mats = sum(int(sizes[i]) ** 2 * 4 for i, _ in pre) + sum(
+        int(sizes[i]) ** 2 * 4 + (16 + 1) * 4 for i, _ in post)
+    slots = (len(db.BT_KEYS) * F * db.NBANDS + d["active"].size
+             + (len(db.LT_INTS) - 1) * int(d["active"].sum())
+             + (1 + 16) * int(d["q0"].sum())
+             + int(np.minimum(d["n"], db.W)[d["pvq"]].sum()) + F) * 4
+    return slots + mats + db.NBANDS * 4 + F * (db.NBINS + 1 + db.NBANDS) * 4
+
+
+def k13_ops(bt, lt) -> float:
+    """K13's fewest fp32 operations on these frames: the [N, N] pre matvec
+    of a band that folds and the post matvec of a band that is present
+    (2 N^2 each), and a few operations a bin for the slots' values and
+    placement (8 N a present band)."""
+    from iamf_tpu_torch.codecs.opus import device_bands as db
+
+    d = _k13_need(bt, lt)
     sizes = db.band_sizes().astype(np.float64)
-    F = bt["present"].shape[0]
-    return float(F * (4 * sizes ** 2 + 8 * sizes).sum())
+    return float((2 * sizes ** 2 * d["fold"]).sum()
+                 + ((2 * sizes ** 2 + 8 * sizes) * d["present"]).sum())
+
+
+def sample_taps():
+    """The Opus sample's native taps (tools/celt_taps.py): its CELT frames
+    and all their PVQ leaves (n, k, idx, gain, spread, blocks, tap X)."""
+    from iamf_tpu_torch.tools import celt_taps
+
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    frames = celt_taps.tap_stream(data)
+    return frames, celt_taps.all_leaves(frames)
+
+
+def celt_inputs(dev) -> dict:
+    """The kernel inputs of phase 17 on `dev`, from the sample's taps: the
+    leaves' pulses y (int32 [7751, 96], K11's twin) and gains g, the
+    rotation plan (cfg int32 [7751], bank [167, 96, 96]), and the 32 mono
+    frames' packed tables (bt, lt) on the twins' leaf coefficients, with
+    their entry seeds s0."""
+    from iamf_tpu_torch import convert
+    from iamf_tpu_torch.codecs.opus import band_pack
+    from iamf_tpu_torch.codecs.opus import device_bands as db
+    from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
+    from iamf_tpu_torch.codecs.opus import device_leaf as dl
+
+    frames, (n, k, idx, gain, spread, blocks, _) = sample_taps()
+    lb = convert.leaf_batch(n, k, idx, gain, spread, blocks, "cpu")
+    cfg, bank = dl.rotation_plan(n, k, spread, blocks)
+    vecs = dl.reconstruct(n, k, idx, gain, spread, blocks, device="cpu")
+    bts, lts, seeds, off = [], [], [], 0
+    for f in frames:
+        L = len(f.leaves[0])
+        if f.tap_C == 1:
+            pf = band_pack.pack_frame(f.recs)
+            bt, lt = db.pack_tensors(pf, list(vecs[off:off + L].numpy()))
+            bts.append(bt)
+            lts.append(lt)
+            seeds.append(pf.seed0)
+        off += L
+    bt, lt = convert.packed_frame(bts, lts, dev)
+    return dict(
+        y=dc.cwrsi_plain(lb["n"], lb["k"], lb["idx"]).to(dev),
+        g=lb["gain"].to(dev), cfg=torch.from_numpy(cfg).to(dev),
+        bank=torch.from_numpy(bank).to(dev), bt=bt, lt=lt,
+        s0=torch.from_numpy(np.array(seeds, np.uint32)).to(dev))
 
 
 def celt_phase(dev, tag):
@@ -2191,11 +2267,8 @@ def celt_phase(dev, tag):
     from iamf_tpu_torch.tools import celt_taps
 
     kernels = (dc.K11, *dl.KERNELS, db.K13)
-    data = open(os.path.join(ROOT, "iamf_tpu", "data",
-                             "sample_opus_714.iamf"), "rb").read()
     t = time.perf_counter()
-    frames = celt_taps.tap_stream(data)
-    n, k, idx, gain, spread, blocks, xo = celt_taps.all_leaves(frames)
+    frames, (n, k, idx, gain, spread, blocks, xo) = sample_taps()
     mono = [f for f in frames if f.tap_C == 1]
     print(f"celt taps: {len(frames)} frames ({len(mono)} mono, "
           f"{sum(f.transient for f in mono)} transient), {len(n)} PVQ "
@@ -2343,6 +2416,21 @@ def celt_phase(dev, tag):
     print(f"torch.bmm of the gathered bank [{rot}, 96, 96] x [{rot}, 96, 1] "
           f"(the rotations alone): {lib_ms:.4f} ms per call, device "
           f"{lib_dev:.4f} ms, rel {e:.3e} vs K12 {tag}")
+    # like for like: K12 in its apply_rotations mode on the same rows
+    xr, cr = xs[:, :, 0].contiguous(), cfg_t[sel_t].contiguous()
+    ar = dl.apply_rotations(xr, cr, bank_t)
+    aw = dl.apply_rotations(xr.cpu(), cr.cpu(), bank_t.cpu()).to(dev)
+    e_ar = float(((ar - aw).abs().amax(1) / aw.abs().amax(1)).max())
+    e_bmm = float(((ar - bmm).abs().amax(1) / bmm.abs().amax(1)).max())
+    check(e_ar <= 1e-6 and e_bmm <= 1e-6,
+          f"K12's apply_rotations disagrees: {e_ar} (twin), {e_bmm} (bmm)")
+    ar_ms = cuda_ms(lambda: dl.apply_rotations(xr, cr, bank_t))
+    ar_dev, _ = device_ms(lambda: dl.apply_rotations(xr, cr, bank_t),
+                          "K12 apply_rotations")
+    print(f"K12 apply_rotations [{rot} rows, {len(bank)} configurations]: "
+          f"{ar_ms:.4f} ms per call, device {ar_dev:.4f} ms, against "
+          f"torch.bmm on the same rows {lib_ms:.4f} / {lib_dev:.4f} ms; rel "
+          f"{e_ar:.3e} vs its twin, {e_bmm:.3e} vs bmm {tag}")
     rows.append(dict(name="k12_leaf", max_abs_err=err, ms=ms,
                      plain_ms=plain_ms, library_ms=lib_ms, **b))
 
@@ -2369,10 +2457,8 @@ def celt_phase(dev, tag):
                                plain_reps=3)
     nd = device_launches(lambda: db.run_frames_cuda(bt, lt, s0))
     check(nd == 1, f"K13 made {nd} device launches a call")
-    banks = db.device_banks(dev)
-    used = {(i, int(c)) for btf in bts for i, c in enumerate(btf["cfg_id"])}
-    moved = k13_bytes(bt, lt, s0, used, banks)
-    ops = k13_ops(bt)
+    moved = k13_bytes(bt, lt)
+    ops = k13_ops(bt, lt)
     b = bound(moved, ops, FP32_FLOPS)
     print(f"K13 bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
           f"{moved / 1e6:.2f} MB, {ops / 1e6:.2f} M flops)")

@@ -21,16 +21,16 @@ Host side (numpy, copied from the JAX package): the constants,
 ``_post_matrix``, ``_pre_matrix``, ``cfg_banks`` and ``pack_tensors``.
 ``device_banks(device)`` puts the banks (≈ 8.3 MB of fp32 matrices, the
 cm and B-mask banks, the LCG tables and sqrt(N) of each band) on a device
-once.
+once; ``k13_banks`` K13's copy of the matrices, laid out for its cluster.
 
 ``run_frame(bt, lt, seed0, device="cuda")`` takes pack_tensors' numpy
 dicts (one frame, or sequences of them) or convert.packed_frame's tensors
 (a leading frame axis F; they keep their device) and returns (spec
 [F, 800] f32, seed out [F] u32, collapse [F, 21] u32), without the frame
 axis for one frame's numpy dicts. On CUDA tensors it runs K13
-(csrc/celt_bands.cu, a block a frame, the bands in sequence); on CPU
-tensors ``run_frames_plain``, the same walk vectorized over frames and
-slots.
+(csrc/celt_bands.cu, a cluster of four CTAs a frame, the bands in
+sequence, each CTA a quarter of every matvec's rows); on CPU tensors
+``run_frames_plain``, the same walk vectorized over frames and slots.
 
 The JAX program reads its windows with ``dynamic_slice``, which clamps a
 start so that the window stays in bounds, and places a leaf with
@@ -47,9 +47,9 @@ import torch
 
 from ...convert import packed_frame
 from ...device import resolve_device
-from ...kernels.build import I, P, Kernel
+from ...kernels.build import I, P, Kernel, load
 from .band_replay import EBANDS
-from .device_cwrsi import (M32, contiguous, i64_to_u32, sqrt_rn,
+from .device_cwrsi import (M32, aligned, contiguous, i64_to_u32, sqrt_rn,
                            u32_to_i64, wrap_i32)
 from .device_leaf import LCG_MAX, lcg_jump_tables, lcg_tables_on, mul32
 
@@ -272,43 +272,52 @@ def pack_tensors(pf, leaf_vecs):
 BT_KEYS = ("present", "has_lb", "eff", "fs", "fe", "last", "B_in", "cfg_id")
 LT_INTS = ("n", "k", "off", "b_leaf", "cm_shift")
 
-K13 = Kernel("iamf_k13_bands", [P] * 11 + [I] + [P] * 3)
+K13 = Kernel("iamf_k13_bands", [P] * 10 + [I] + [P] * 3)
+
+
+def k13_cluster() -> int:
+    """CTAs a frame of the loaded K13 (csrc/celt_bands.cu's CLUSTER)."""
+    return int(load().iamf_k13_cluster())
+
+
+def row_parts(mats, cluster: int) -> np.ndarray:
+    """K13's layout of the bands' [14, N, N] banks, flat in band order:
+    matrix m of a band as `cluster` parts q of R = N / cluster rows (a
+    CTA's each), part q's element m[q R + row, 4 u + r] at [u][row][r]
+    (the four threads of a row, thread r reading column 4 u + r, read 32
+    consecutive floats a warp)."""
+    return np.concatenate([
+        m.reshape(len(m), cluster, m.shape[1] // cluster, m.shape[2] // 4, 4)
+        .transpose(0, 1, 3, 2, 4).reshape(-1) for m in mats])
 
 
 @functools.lru_cache(maxsize=None)
 def device_banks(device: torch.device) -> dict:
     """cfg_banks() and the walk's other tables on a device, built once a
-    device: ``post``/``pre`` the 21 bands' [14, N, N] matrix banks flat in
-    band order, each matrix stored transposed (K13's threads, a row each,
-    then read a column of the store together), with ``post_bands``/
-    ``pre_bands`` the [14, N, N] views of each band; ``cm`` [21, 14, 16]
-    and ``bm`` [21, 14] (int32 holding u32 bits), ``sq`` [21] the float32
-    of float64 sqrt(N), ``lcg`` the LCG jump tables."""
+    device: ``post_bands``/``pre_bands`` the 21 bands' [14, N, N] matrix
+    banks; ``cm`` [21, 14, 16] and ``bm`` [21, 14] (int32 holding u32
+    bits), ``sq`` [21] the float32 of float64 sqrt(N), ``lcg`` the LCG
+    jump tables."""
     post, pre, cmc, bmask = cfg_banks()
     sizes = band_sizes()
-
-    def flat(mats):
-        t = torch.from_numpy(np.concatenate(
-            [m.transpose(0, 2, 1).reshape(-1) for m in mats])).to(device)
-        views, o = [], 0
-        for N in sizes:
-            n = len(CFGS) * int(N) * int(N)
-            views.append(t[o:o + n].view(len(CFGS), int(N), int(N))
-                         .transpose(1, 2))
-            o += n
-        return t, views
-
-    post_t, post_v = flat(post)
-    pre_t, pre_v = flat(pre)
     return {
-        "post": post_t, "pre": pre_t, "post_bands": post_v,
-        "pre_bands": pre_v,
+        "post_bands": [torch.from_numpy(m).to(device) for m in post],
+        "pre_bands": [torch.from_numpy(m).to(device) for m in pre],
         "cm": torch.from_numpy(np.stack(cmc).view(np.int32)).to(device),
         "bm": torch.from_numpy(np.stack(bmask).view(np.int32)).to(device),
         "sq": torch.from_numpy(np.sqrt(sizes.astype(np.float64)).astype(
             np.float32)).to(device),
         "lcg": lcg_tables_on(device),
     }
+
+
+@functools.lru_cache(maxsize=None)
+def k13_banks(device: torch.device, cluster: int) -> tuple:
+    """K13's post and pre banks on a device, in row_parts' layout for
+    `cluster` CTAs a frame."""
+    post, pre, _, _ = cfg_banks()
+    return tuple(torch.from_numpy(row_parts(m, cluster)).to(device)
+                 for m in (post, pre))
 
 
 def _shl(x, s):
@@ -436,9 +445,12 @@ def run_frames_plain(bt: dict, lt: dict, seed0):
 
 def run_frames_cuda(bt: dict, lt: dict, seed0):
     """K13 on the card: the same tensors as run_frames_plain, all F frames
-    in one launch (a block a frame)."""
+    in one launch (a cluster of four CTAs a frame)."""
     dev = lt["vec"].device
     F = lt["vec"].shape[0]
+    if dev.type != "cuda":  # before the library is asked for its cluster
+        raise ValueError(f"{K13.symbol}: every tensor must be on one CUDA "
+                         f"device, got {dev}")
     if (lt["vec"].shape[1:] != (NBANDS, SLOTS, W)
             or lt["vec"].dtype != torch.float32
             or lt["gain"].dtype != torch.float32
@@ -454,21 +466,18 @@ def run_frames_cuda(bt: dict, lt: dict, seed0):
            for t, sh in zip(fields, shapes)):
         raise ValueError("K13 takes the packed tables' fields as int32 "
                          "[F, 21] / [F, 21, 16] on the tables' device")
-    fields = [t.contiguous() for t in fields]
+    fields = [aligned(t) for t in fields]
     ptrs = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
-    fill = contiguous(lt["fill_cols"])
-    if fill.data_ptr() % 16:  # K13 reads the fill maps as 16-byte vectors
-        fill = fill.view(torch.int32).clone().view(torch.uint32)
     banks = device_banks(dev)
+    post, pre = k13_banks(dev, k13_cluster())
     spec = torch.empty((F, NBINS), dtype=torch.float32, device=dev)
     seed = torch.empty(F, dtype=torch.uint32, device=dev)
     collapse = torch.empty((F, NBANDS), dtype=torch.uint32, device=dev)
     if F:
-        K13(ctypes.addressof(ptrs), lt["gain"].contiguous(), fill,
-            lt["vec"].contiguous(),
-            contiguous(seed0), banks["post"],
-            banks["pre"], banks["cm"], banks["bm"], banks["sq"],
-            banks["lcg"], F, spec, seed, collapse)
+        K13(ctypes.addressof(ptrs), aligned(lt["gain"]),
+            aligned(lt["fill_cols"]), aligned(lt["vec"]),
+            contiguous(seed0), post, pre, banks["cm"], banks["bm"],
+            banks["sq"], F, spec, seed, collapse)
     return spec, seed, collapse
 
 

@@ -116,6 +116,15 @@ def contiguous(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """contiguous(t) at a 16-byte aligned address (a kernel's vector loads
+    and bulk copies); a tensor of 4-byte elements."""
+    c = contiguous(t)
+    if c.data_ptr() % 16:  # a copy through int32 (CUDA copies no uint32)
+        c = c.view(torch.int32).clone().view(t.dtype)
+    return c
+
+
 def wrap_i32(t: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 with the wrap of two's complement."""
     return (((t & M32) ^ 0x80000000) - 0x80000000).to(torch.int32)

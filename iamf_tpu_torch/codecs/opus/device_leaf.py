@@ -17,8 +17,9 @@ Host side (numpy, copied): ``needs_rotation``, ``rotation_matrix``,
 Device side, K12 (csrc/celt_leaf.cu) on CUDA tensors, the plain twins on
 CPU tensors:
 - ``normalize_pulses`` / ``apply_rotations`` / the two fused in
-  ``normalize_rotate``: a warp a leaf, the rotating leaves' matvec on the
-  CUDA cores in fp32;
+  ``normalize_rotate``: one launch, a block a configuration (its matrix
+  in shared memory once, its leaves gathered from cfg, a thread an output
+  row on the CUDA cores in fp32), then a warp a leaf for the others;
 - ``lcg_noise_fill`` and ``lcg_leaf_entry_seeds``: celt_lcg_rand's
   seed' = 1664525 seed + 1013904223 (mod 2^32) by jump-ahead,
   seed_after_j = A^j seed + B_j, the tables in shared memory, exact;
@@ -40,12 +41,12 @@ import torch
 from ...kernels.build import I, P, U, Kernel
 from ...convert import leaf_batch
 from ...device import resolve_device
-from .device_cwrsi import (M32, contiguous, cwrsi_batch, i64_to_u32,
-                           sqrt_rn, u32_to_i64, wrap_i32)
+from .device_cwrsi import (M32, aligned, contiguous, cwrsi_batch,
+                           i64_to_u32, sqrt_rn, u32_to_i64, wrap_i32)
 
 ROT_W = 96  # rotation matrix pad (largest rotating leaf dimension)
 
-K12 = Kernel("iamf_k12_normrot", [P, P, P, P, P, I, I, P])
+K12 = Kernel("iamf_k12_normrot", [P, P, P, P, P, I, I, I, P])
 K12_FILL = Kernel("iamf_k12_lcg_fill", [P, I, I, P, P])
 K12_ENTRY = Kernel("iamf_k12_lcg_entry", [U, P, I, P, P])
 KERNELS = (K12, K12_FILL, K12_ENTRY)
@@ -145,6 +146,7 @@ def _normrot_cuda(y, x, gain, cfg, bank, L, W):
     want = ((y, torch.int32, (L, W)), (x, torch.float32, (L, W)),
             (gain, torch.float32, (L,)), (cfg, torch.int32, (L,)))
     if (W > ROT_W or (cfg is not None and W != ROT_W)
+            or (cfg is None) != (bank is None)
             or any(t is not None and (t.dtype != dt or tuple(t.shape) != sh)
                    for t, dt, sh in want)
             or (bank is not None and (bank.dtype != torch.float32
@@ -155,9 +157,11 @@ def _normrot_cuda(y, x, gain, cfg, bank, L, W):
                          f"bank float32 [n, {ROT_W}, {ROT_W}] (W = {ROT_W} "
                          f"to rotate)")
     out = torch.empty((L, W), dtype=torch.float32, device=dev)
+    n_cfg = 0 if bank is None else bank.shape[0]
     if L:
-        K12(*(t.contiguous() if t is not None else None
-              for t in (y, x, gain, cfg, bank)), L, W, out)
+        K12(*(t.contiguous() if t is not None else None for t in (y, x, gain)),
+            *(aligned(t) if t is not None else None for t in (cfg, bank)),
+            L, W, n_cfg, out)
     return out
 
 

@@ -33,16 +33,26 @@ def label(tree: str | None) -> str:
     return os.path.basename(os.path.abspath(tree or ROOT))
 
 
+_CSRC: dict = {}  # a build module's own csrc, before use_source moved it
+
+
+def csrc(build):
+    """The kernel sources of `build`'s tree (use_source points build.CSRC
+    at a copy)."""
+    return _CSRC.setdefault(build.__file__, build.CSRC)
+
+
 def use_source(build, kernel, name: str, file: str, text: str):
     """Build `text` (a version of csrc/`file`) with the other kernel
-    sources and headers into its own library and make `kernel` launch
-    from it; returns the library's path."""
+    sources and headers of `build`'s tree (as the tree has them, not as
+    an earlier call changed them) into its own library and make `kernel`
+    launch from it; returns the library's path."""
     import ctypes
     import shutil
 
     d = BUILD / name.replace(" ", "_")
     d.mkdir(parents=True, exist_ok=True)
-    for p in (ROOT / "iamf_tpu_torch" / "csrc").glob("*.cu*"):
+    for p in csrc(build).glob("*.cu*"):
         shutil.copy(p, d)
     (d / file).write_text(text)
     build.CSRC, build.BUILD = d, d

@@ -812,3 +812,121 @@ def test_k13_batch_equals_frames(dev, celt):
     want = np.stack([f.X[0] for f in mono])
     got = spec.cpu().numpy()
     assert (np.abs(got - want).max(1) / np.abs(want).max(1)).max() < 2e-5
+
+
+@pytest.mark.parametrize("F", [1, 33])
+def test_k13_cluster_counts(dev, celt, F):
+    """K13 (a cluster of four CTAs a frame) at F frames, 33 being more
+    clusters than the card runs at once: each frame bit for bit its own
+    F = 1 call, seeds and collapse masks equal, one launch."""
+    from iamf_tpu_torch import convert
+    from iamf_tpu_torch.codecs.opus import device_bands as db
+
+    _, _, bts, lts, seeds = celt
+    pick = [j % len(bts) for j in range(F)]
+    bt, lt = convert.packed_frame([bts[j] for j in pick],
+                                  [lts[j] for j in pick], dev)
+    s0 = torch.from_numpy(np.array([seeds[j] for j in pick], np.uint32))
+    db.K13.reset()
+    spec, seed, coll = db.run_frames_cuda(bt, lt, s0.to(dev))
+    assert db.K13.launches == 1 and db.K13.plain_on_cuda == 0
+    for j, src in enumerate(pick):
+        s1, k1, c1 = db.run_frame(bts[src], lts[src], seeds[src], device=dev)
+        assert torch.equal(s1, spec[j])
+        assert int(_i32(k1)) == int(_i32(seed[j]))
+        assert torch.equal(_i32(c1), _i32(coll[j]))
+
+
+@pytest.mark.parametrize("kind", ["noise", "pvq", "fold"])
+def test_k13_synthetic_frames(dev, kind):
+    """K13 on 40 synthetic frames (tests/test_torch_celt_kernels.py: LCG
+    draws far along a band, n = 1 and n above the band's width, b_leaf up
+    to 16, offsets outside [0, N), windows past the norm buffer, k = -1,
+    inactive slots between active ones, absent and last bands) against
+    its twin: rel 2e-5 of each frame's peak, seeds and collapse masks
+    equal, one launch; frame 0 alone bit for bit its place in the batch."""
+    from test_torch_celt_kernels import synthetic_frames
+
+    from iamf_tpu_torch import convert
+    from iamf_tpu_torch.codecs.opus import device_bands as db
+
+    bts, lts, seeds = synthetic_frames(kind, 40)
+    bt, lt = convert.packed_frame(bts, lts, "cpu")
+    s0 = torch.from_numpy(np.array(seeds, np.uint32))
+    db.K13.reset()
+    spec, seed, coll = db.run_frames_cuda(
+        {k: v.to(dev) for k, v in bt.items()},
+        {k: v.to(dev) for k, v in lt.items()}, s0.to(dev))
+    assert db.K13.launches == 1 and db.K13.plain_on_cuda == 0
+    sp, kp, cp = db.run_frames_plain(bt, lt, s0)
+    scale = sp.abs().amax(1)
+    assert bool((scale > 0).all())
+    assert float(((spec.cpu() - sp).abs().amax(1) / scale).max()) < 2e-5
+    assert torch.equal(_i32(seed).cpu(), _i32(kp))
+    assert torch.equal(_i32(coll).cpu(), _i32(cp))
+    s1, k1, c1 = db.run_frame(bts[0], lts[0], seeds[0], device=dev)
+    assert torch.equal(s1, spec[0])
+    assert int(_i32(k1)) == int(_i32(seed[0]))
+    assert torch.equal(_i32(c1), _i32(coll[0]))
+
+
+def _k12_case(case, celt):
+    """(y or None, X or None, gain, cfg or None, bank or None) on the CPU
+    for a K12 card case: the sample's leaves cut or repeated so that one
+    configuration holds many leaves (and more than a block's list holds:
+    7,000 copies of its rows), one leaf, or none rotates."""
+    from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
+    from iamf_tpu_torch.codecs.opus import device_leaf as dl
+
+    n, k, idx, gain, spread, blocks, _ = celt[1]
+    cfg, bank = dl.rotation_plan(n, k, spread, blocks)
+    y = dc.cwrsi_plain(*(torch.from_numpy(a) for a in (n, k, idx)))
+    g = torch.from_numpy(gain)
+    counts = np.bincount(cfg[cfg >= 0])
+    if case == "many":  # the fullest configuration, 7,000 times over
+        c = int(np.argmax(counts))
+        rows = np.flatnonzero(cfg == c)
+        sel = np.concatenate([np.resize(rows, 7000), np.flatnonzero(cfg < 0)
+                              [:500]])
+        return y[sel], None, g[sel], torch.from_numpy(cfg[sel]), \
+            torch.from_numpy(bank)
+    if case == "one":  # configurations of a single leaf among others
+        c = int(np.flatnonzero(counts == 1)[0])
+        sel = np.concatenate([np.flatnonzero(cfg == c),
+                              np.flatnonzero(cfg < 0)[:100]])
+        return y[sel], None, g[sel], torch.from_numpy(cfg[sel]), \
+            torch.from_numpy(bank)
+    if case == "none":  # cfg given, no leaf rotates
+        sel = np.flatnonzero(cfg < 0)[:1000]
+        return y[sel], None, g[sel], torch.from_numpy(cfg[sel]), \
+            torch.from_numpy(bank)
+    if case == "narrow":  # normalize only, W < 96
+        sel = np.flatnonzero(n <= 24)
+        return y[sel][:, :24].contiguous(), None, g[sel], None, None
+    assert case == "apply"  # apply_rotations: X given
+    X = dl.normalize_rotate_plain(y, g)
+    return None, X, None, torch.from_numpy(cfg), torch.from_numpy(bank)
+
+
+@pytest.mark.parametrize("case", ["many", "one", "none", "narrow", "apply"])
+def test_k12_cases(dev, celt, case):
+    """K12 (a block a configuration, then a warp a leaf) against its twin:
+    rel 1e-6 of each row's peak, the rows that do not rotate bit for bit,
+    one launch a call."""
+    from iamf_tpu_torch.codecs.opus import device_leaf as dl
+
+    y, X, g, cfg, bank = _k12_case(case, celt)
+    on = [t.to(dev) if t is not None else None for t in (y, X, g, cfg, bank)]
+    dl.K12.reset()
+    if X is None:
+        got = dl.normalize_rotate(on[0], on[2], on[3], on[4]).cpu()
+        want = dl.normalize_rotate_plain(y, g, cfg, bank)
+    else:
+        got = dl.apply_rotations(on[1], on[3], on[4]).cpu()
+        want = dl.apply_rotations(X, cfg, bank)
+    assert dl.K12.launches == 1 and dl.K12.plain_on_cuda == 0
+    scale = want.abs().amax(1).clamp(min=1e-30)
+    assert float(((got - want).abs().amax(1) / scale).max()) <= 1e-6
+    still = torch.ones(len(want), dtype=torch.bool) if cfg is None \
+        else cfg < 0
+    assert torch.equal(got[still], want[still])
