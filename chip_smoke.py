@@ -112,7 +112,8 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      first 32 coefficients, spectra rel 2e-5 of each frame's peak, the
      emitted end seeds and the collapse masks equal); then K11 bit for
      bit against its twin and the native walk (also walk order and
-     n_max = 24), K12 within rel 1e-6 of each row's peak of its twin
+     n_max = 24), and so on the random corpus (4,096 leaves) and the
+     edges of the CPU tests (cwrsi_corpus), K12 within rel 1e-6 of each row's peak of its twin
      (the normalization alone and the LCG entries bit for bit), K13
      within rel 2e-5 with equal seeds and collapse masks and equal to its
      F = 1 calls bit for bit, each with its times, its twin's, its bound
@@ -2151,6 +2152,16 @@ def k11_ops(n) -> float:
     return float(3 * np.maximum(n - 2, 0).sum() + 10 * len(n))
 
 
+def cwrsi_corpus() -> dict:
+    """K11's corpora beside the sample, as numpy (n, k, idx): "random", 4,096
+    leaves of celt_taps.random_leaves (numpy seed 11), and "edges",
+    celt_taps.edge_leaves; the CPU tests' corpora."""
+    from iamf_tpu_torch.tools import celt_taps
+
+    return {"random": celt_taps.random_leaves(np.random.default_rng(11), 4096),
+            "edges": celt_taps.edge_leaves()}
+
+
 def _k13_need(bt, lt):
     """What K13's function needs of these frames (numpy): for each frame
     and band, whether it is present and whether it folds; for each slot,
@@ -2343,6 +2354,20 @@ def celt_phase(dev, tag):
           f"native walk {native}; n_max 24 ({int(sel.sum())} leaves) aligned "
           f"and walk order equal {lay}")
     check(ok and native and all(lay), "K11 disagrees")
+    for name, (cn, ck, ci) in cwrsi_corpus().items():
+        same = {}
+        for n_max in (96, 24):
+            sub = cn <= n_max
+            a = [torch.from_numpy(v[sub]).to(dev) for v in (cn, ck, ci)]
+            for al in (True, False):
+                same[n_max, al] = torch.equal(dc.cwrsi_cuda(*a, al, n_max),
+                                              dc.cwrsi_plain(*a, al, n_max))
+        a = [torch.from_numpy(v).to(dev) for v in (cn, ck, ci)]
+        native = np.array_equal(dc.cwrsi_cuda(*a).cpu().numpy(),
+                                dc.host_reference(cn, ck, ci))
+        print(f"K11 on the {name} corpus [{len(cn)} leaves]: equal to its "
+              f"twin at (n_max, aligned) {same}, to the native walk {native}")
+        check(all(same.values()) and native, f"K11 disagrees on {name}")
     args = (lb["n"], lb["k"], lb["idx"])
     ms, plain_ms = _twin_times(tag, f"K11 [{len(n)} leaves]",
                                lambda: dc.cwrsi_cuda(*args),

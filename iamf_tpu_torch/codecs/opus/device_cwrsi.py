@@ -13,9 +13,11 @@ exactly, in u32 arithmetic with its wraps.
   (numpy, copied from the JAX package);
 - ``host_reference``: the native walk, the oracle;
 - ``cwrsi_batch(n, k, idx, align=True, n_max=N_MAX)``: on CUDA tensors
-  K11 (csrc/celt_cwrsi.cu, a thread a leaf, the rows in shared memory, a
-  binary search a dimension); on CPU tensors ``cwrsi_plain``, the same
-  walk vectorized over the leaves with ``torch.searchsorted``.
+  K11 (csrc/celt_cwrsi.cu: a warp a leaf, the search of a row the
+  popcount of the lanes' ballots, runs of zero steps 32 dimensions a
+  pass, the rows in shared memory by one bulk copy a block, a block's
+  leaves longest first); on CPU tensors ``cwrsi_plain``, the same walk
+  vectorized over the leaves with ``torch.searchsorted``.
 
 The JAX package evaluates each row lookup as a one-hot select because
 XLA:TPU gathers slowly; both forms here read the row directly.
@@ -149,6 +151,20 @@ def _check(n, k, idx, n_max):
             f"{idx.dtype} {list(idx.shape)}")
 
 
+def look(row: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """row[v] (row int64 [U_MAX_K]), 0 where v is outside the row."""
+    ok = (v >= 0) & (v < U_MAX_K)
+    return torch.where(ok, row[v.clamp(0, U_MAX_K - 1)], 0)
+
+
+def search(row: torch.Tensor, i: torch.Tensor,
+           upper: torch.Tensor) -> torch.Tensor:
+    """max{j <= upper : row[j] <= i}, or -1 (row int64 [U_MAX_K],
+    nondecreasing: the j with row[j] <= i are a prefix)."""
+    c = torch.searchsorted(row, i, right=True) - 1
+    return torch.minimum(c, upper).clamp(min=-1)
+
+
 def cwrsi_plain(n, k, idx, align: bool = True, n_max: int = N_MAX):
     """Plain twin of K11: (n, k int32 [L], idx uint32 [L]) -> pulses int32
     [L, n_max]. u32 values are held in int64 and wrapped after every
@@ -163,14 +179,6 @@ def cwrsi_plain(n, k, idx, align: bool = True, n_max: int = N_MAX):
     n0 = n.to(torch.int64)
     L = n.shape[0]
     walk = torch.zeros((L, n_max), dtype=torch.int64, device=dev)
-
-    def look(row, v):  # row[v], 0 outside the row
-        ok = (v >= 0) & (v < U_MAX_K)
-        return torch.where(ok, row[v.clamp(0, U_MAX_K - 1)], 0)
-
-    def search(row, i, upper):  # max{j <= upper : row[j] <= i}, or -1
-        c = torch.searchsorted(row, i, right=True) - 1
-        return torch.minimum(c, upper).clamp(min=-1)
 
     for d in range(n_max, 2, -1):
         act = n0 >= d
@@ -223,7 +231,7 @@ def cwrsi_plain(n, k, idx, align: bool = True, n_max: int = N_MAX):
 
 def cwrsi_cuda(n, k, idx, align: bool = True, n_max: int = N_MAX):
     """K11 on the card: (n, k int32 [L], idx uint32 [L]) -> pulses int32
-    [L, n_max] in one launch, a thread a leaf."""
+    [L, n_max] in one launch, a warp a leaf."""
     _check(n, k, idx, n_max)
     n, k, idx = n.contiguous(), k.contiguous(), contiguous(idx)
     L = n.shape[0]

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -208,3 +209,44 @@ def all_leaves(frames: list[TappedFrame]) -> tuple:
     spread, blocks, x [L, 32])."""
     return tuple(np.concatenate([f.leaves[j] for f in frames])
                  for j in range(7))
+
+
+@functools.lru_cache(maxsize=None)
+def _u_table() -> np.ndarray:
+    from ..codecs.opus import device_cwrsi
+
+    return device_cwrsi.u_table().astype(np.uint64)
+
+
+def v_count(n: int, k: int) -> int:
+    """V(n, k) = U(n, k) + U(n, k + 1), from device_cwrsi's u32 table, at
+    most 2^32: the number of indices of a leaf of n dimensions and k
+    pulses."""
+    t = _u_table()
+    v = int(t[max(n, k), min(n, k)]) + int(t[max(n, k + 1), min(n, k + 1)])
+    return min(v, 1 << 32)
+
+
+def random_leaves(rng: np.random.Generator, count: int) -> tuple:
+    """(n, k, idx) of `count` synthetic leaves for K11: n from the 48 kHz
+    band-size census, k in [1, 128], the index uniform in [0, V(n, k))."""
+    ns = rng.choice([2, 3, 4, 6, 8, 12, 16, 18, 22, 24, 32, 44, 48, 64,
+                     88, 96], size=count)
+    ks = rng.integers(1, 129, size=count)
+    idx = np.empty(count, np.uint32)
+    for j in range(count):
+        idx[j] = rng.integers(0, max(v_count(int(ns[j]), int(ks[j])), 1))
+    return ns.astype(np.int32), ks.astype(np.int32), idx
+
+
+def edge_leaves() -> tuple:
+    """(n, k, idx) of K11's edges: n in (2, 3, 4, 96), k in (1, 2, 127,
+    128), index 0, 1, V - 1 and V / 2."""
+    cases = []
+    for n in (2, 3, 4, 96):
+        for k in (1, 2, 127, 128):
+            v = v_count(n, k)
+            cases += [(n, k, i) for i in (0, 1, v - 1, v // 2) if 0 <= i < v]
+    c = np.array(cases, np.int64)
+    return c[:, 0].astype(np.int32), c[:, 1].astype(np.int32), \
+        c[:, 2].astype(np.uint32)

@@ -101,47 +101,11 @@ def _jax_cwrsi(n, k, idx, **kw):
                                       jnp.asarray(pi), **kw))[:L]
 
 
-def _rand_leaves(rng, count):
-    """tests/test_device_cwrsi.py's corpus: n from the 48 kHz band-size
-    census, k <= 128, index uniform in [0, V(n,k))."""
-    t = jdc.u_table().astype(np.uint64)
-
-    def V(n, k):
-        a, b = max(n, k), min(n, k)
-        a1, b1 = max(n, k + 1), min(n, k + 1)
-        return int(t[a, b]) + int(t[a1, b1])
-
-    ns = rng.choice([2, 3, 4, 6, 8, 12, 16, 18, 22, 24, 32, 44, 48, 64,
-                     88, 96], size=count)
-    ks = rng.integers(1, 129, size=count)
-    idx = np.empty(count, np.uint32)
-    for j in range(count):
-        v = min(V(int(ns[j]), int(ks[j])), 1 << 32)
-        idx[j] = rng.integers(0, max(v, 1))
-    return ns.astype(np.int32), ks.astype(np.int32), idx
-
-
-def _edges():
-    """tests/test_device_cwrsi.py's edges: n in (2, 3, 4, 96), k in (1,
-    2, 127, 128), index 0, 1, V-1 and V/2."""
-    t = jdc.u_table().astype(np.uint64)
-    cases = []
-    for n in (2, 3, 4, 96):
-        for k in (1, 2, 127, 128):
-            a, b = max(n, k), min(n, k)
-            a1, b1 = max(n, k + 1), min(n, k + 1)
-            v = min(int(t[a, b]) + int(t[a1, b1]), 1 << 32)
-            cases += [(n, k, i) for i in (0, 1, v - 1, v // 2) if 0 <= i < v]
-    c = np.array(cases, np.int64)
-    return c[:, 0].astype(np.int32), c[:, 1].astype(np.int32), \
-        c[:, 2].astype(np.uint32)
-
-
 def _corpus(case, leaves):
     if case == "random":
-        return _rand_leaves(np.random.default_rng(11), 4096)
+        return celt_taps.random_leaves(np.random.default_rng(11), 4096)
     if case == "edges":
-        return _edges()
+        return celt_taps.edge_leaves()
     return leaves[0], leaves[1], leaves[2]
 
 

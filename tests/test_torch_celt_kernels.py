@@ -21,7 +21,18 @@ kernels run only on the card (tests/test_torch_cuda.py).
 - K12's grouping (a block a configuration: the cfg entries scanned eight
   a thread, a block scan of the counts, the list flushed when full) gives
   each configuration its leaves in leaf order, every rotating leaf once,
-  none when no leaf rotates, held to rotation_plan's cfg.
+  none when no leaf rotates, held to rotation_plan's cfg;
+- K11's warp search (csrc/celt_cwrsi.cu: lane l holds entries
+  j = l + 32 r of a row and of the next; the j <= upper with row[j] <= i
+  counted by a warp sum, row[c - 1], next[c - 1] and next[c] by warp
+  maxima and a minimum over the lanes' own entries) equals the twin's
+  searchsorted search and its row reads on every row of u_rows(), for i
+  at each entry, each entry +-1, 0 and 0xFFFFFFFF and every upper in
+  [-1, 131], with five entries a lane and with as few as the kernel
+  holds; the whole warp walk on that search (the lots-of-pulses and
+  lots-of-dimensions cases as selects) equals cwrsi_plain bit for bit on
+  the random corpus, the edges, the sample's leaves and leaves outside
+  the walk's range; K11's grid takes every leaf once.
 """
 
 import os
@@ -33,6 +44,7 @@ import torch
 
 from iamf_tpu_torch.codecs.opus import band_pack
 from iamf_tpu_torch.codecs.opus import device_bands as db
+from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
 from iamf_tpu_torch.codecs.opus import device_leaf as dl
 from iamf_tpu_torch.tools import celt_taps
 
@@ -313,3 +325,212 @@ def test_k12_grouping(case, sample):
     assert flat == list(np.flatnonzero((cfg >= 0) & (cfg < n_cfg)))
     if case == "none":
         assert not flat
+
+
+# ---- K11: the warp search and walk ------------------------------------------
+
+M32 = 0xFFFFFFFF
+K11_J = np.arange(5)[:, None] * 32 + np.arange(32)[None, :]  # [r, lane]
+
+
+def _k11_R(k):
+    """K11's R for leaves of k pulses: (k + 1) / 32 + 1 rows of lanes."""
+    k = np.asarray(k, np.int64)
+    return np.where(k < 0, 0, np.minimum(k + 1, dc.U_MAX_K - 1)) // 32 + 1
+
+
+def _k11_held(k):
+    """[..., 5, 32]: the entries j = lane + 32 r a lane holds for a leaf of
+    k pulses (j < 132, r < R)."""
+    r = np.arange(5)[:, None]
+    return (K11_J < dc.U_MAX_K) & (r < _k11_R(k)[..., None, None])
+
+
+
+
+def _at(row, v):
+    """row[..., v], 0 where v is outside [0, 132): a read of the rows (row
+    [132] or [..., 132], v int [...])."""
+    v = np.asarray(v, np.int64)
+    row = np.broadcast_to(row, v.shape + (dc.U_MAX_K,))
+    got = np.take_along_axis(row, np.clip(v, 0, dc.U_MAX_K - 1)[..., None],
+                             -1)[..., 0]
+    return np.where((v >= 0) & (v < dc.U_MAX_K), got, 0).astype(np.uint32)
+
+
+def k11_search(row, nxt, i, upper, held):
+    """K11's search as its warp computes it: row and nxt u32 [132] or
+    [..., 132] (rows d and d - 1), i u32 and upper int [...], held bool
+    [..., 5, 32] (the entries j = lane + 32 r the lanes hold). For each r,
+    the ballot of j <= upper & row[j] <= i over the lanes; c is the sum of
+    the ballots' popcounts, the j counted being a prefix [0, c). Returns
+    (c, row[c - 1], nxt[c - 1], nxt[c]), the reads 0 outside the row."""
+    e = np.asarray(row)[..., np.minimum(K11_J, dc.U_MAX_K - 1)]
+    i = np.asarray(i, np.uint32)[..., None]
+    upper = np.asarray(upper, np.int64)[..., None]
+    c = 0
+    for r in range(5):
+        q = held[..., r, :] & (K11_J[r] <= upper) & (e[..., r, :] <= i)
+        ballot = (q.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+            -1).astype(np.uint32)
+        c = c + np.bitwise_count(ballot).astype(np.int64)
+    return c, _at(row, c - 1), _at(nxt, c - 1), _at(nxt, c)
+
+
+def k11_zero_run(rows, d, kk, i):
+    """K11's run of zero steps from dimension d (each leaf's step at d is
+    one): lane l tests dimension d - l with i less the prefix sum (u32) of
+    row[kk] over the lanes before it; the first lane that fails ends the
+    run. Returns (F, i, row[kk], row[kk + 1]) after the F zero steps, the
+    reads those of dimension d - F (lane F's; lane 31's where F = 32)."""
+    dl = d[:, None] - np.arange(32)[None, :]
+    rl = rows[np.maximum(dl, 2)]                          # [L, 32, 132]
+    a = np.take_along_axis(rl, kk[:, None, None], -1)[..., 0]
+    b = np.take_along_axis(rl, kk[:, None, None] + 1, -1)[..., 0]
+    incl = np.cumsum(a, axis=1, dtype=np.uint32)
+    il = i[:, None] - (incl - a)
+    fail = ~((dl > 2) & (kk[:, None] < dl) & (a <= il) & (il < b))
+    F = np.where(fail.any(1), fail.argmax(1), 32)
+    src = np.minimum(F, 31)[:, None]
+    i = np.where(F < 32, np.take_along_axis(il, src, 1)[:, 0],
+                 i - incl[:, 31])
+    return (F, i, np.take_along_axis(a, src, 1)[:, 0],
+            np.take_along_axis(b, src, 1)[:, 0])
+
+
+def _look(row, v):
+    """cwrsi_plain's read row[v], 0 outside the row (device_cwrsi.look)."""
+    return dc.look(torch.from_numpy(row.astype(np.int64)),
+                   torch.from_numpy(v)).numpy()
+
+
+@pytest.mark.parametrize("held", ["all", "fewest"])
+def test_k11_warp_search_equals_searchsorted(held):
+    """K11's search on every row of u_rows(), for i at each entry, each
+    entry +-1, 0 and 0xFFFFFFFF and every upper in [-1, 131]: the count
+    less one is searchsorted's k' and the three reductions are row[k'],
+    next[k'] and next[k' + 1], with five entries a lane ("all") and with
+    the fewest the kernel holds for a leaf whose k bounds upper
+    ("fewest": k = upper)."""
+    rows = dc.u_rows()
+    uppers = np.arange(-1, 132)
+    for d in range(dc.N_MAX + 1):
+        row, nxt = rows[d], rows[max(d - 1, 0)]
+        v = row.astype(np.int64)
+        iv = np.unique(np.concatenate([v, v + 1, v - 1, [0, M32]]))
+        iv = iv[(iv >= 0) & (iv <= M32)].astype(np.uint32)
+        i, up = (a.ravel() for a in np.meshgrid(iv, uppers, indexing="ij"))
+        h = (_k11_held(np.full(len(up), 131)) if held == "all"
+             else _k11_held(up))
+        c, mx, nmx, nmn = k11_search(row, nxt, i, up, h)
+        kn = dc.search(torch.from_numpy(v), torch.from_numpy(
+            i.astype(np.int64)), torch.from_numpy(up)).numpy()
+        assert np.array_equal(c - 1, kn), d
+        assert np.array_equal(mx, _look(row, kn)), d
+        assert np.array_equal(nmx, _look(nxt, kn)), d
+        assert np.array_equal(nmn, _look(nxt, kn + 1)), d
+
+
+def _sd(k0, k, s):
+    """(int)(((u32)k0 - (u32)k + (u32)s) ^ (u32)s)."""
+    return (((k0 - k + s) & M32) ^ (s & M32)).astype(np.uint32).view(
+        np.int32).astype(np.int64)
+
+
+def k11_model(n, k, idx, align=True, n_max=dc.N_MAX, runs=True):
+    """numpy model of K11's warp walk, every leaf at once, each at its own
+    dimension d from min(n, n_max) down to 3: a pass is a run of zero
+    steps (k11_zero_run) where the step at d is one and `runs`, else one
+    step, its upper bound selected from the lots-of-pulses and
+    lots-of-dimensions cases and its search k11_search; the state is kk, i
+    and p0 = row[kk], p1 = row[kk + 1]. Then the closed forms of n = 2
+    and n = 1 and the layout."""
+    rows = dc.u_rows()
+    n = np.asarray(n, np.int64)
+    kk = np.asarray(k, np.int64).copy()
+    i = np.asarray(idx, np.uint32).copy()
+    held = _k11_held(kk)
+    d = np.minimum(n, n_max)
+    ys = np.zeros((len(n), n_max), np.int64)
+    at = rows[np.clip(d, 0, n_max)]
+    p0, p1 = _at(at, kk), _at(at, kk + 1)
+    while (d > 2).any():
+        act = d > 2
+        run = act & (kk < d) & (p0 <= i) & (i < p1) & runs
+        step = act & ~run
+        if run.any():
+            F, ir, a, b = k11_zero_run(rows, d[run], kk[run], i[run])
+            dr = d[run] - F
+            at = rows[np.clip(dr, 0, n_max)]
+            kr = kk[run]
+            i[run] = ir
+            p0[run] = np.where(F < 32, a, _at(at, kr))
+            p1[run] = np.where(F < 32, b, _at(at, kr + 1))
+            d[run] = dr
+        if step.any():
+            ds, ks, i_s = d[step], kk[step], i[step]
+            row, nxt = rows[ds], rows[ds - 1]
+            s = i_s >= p1[step]
+            ix = np.where(s, i_s - p1[step], i_s)
+            ge = ks >= ds
+            zero = ~ge & ~s & (p0[step] <= i_s)
+            rd = rows[ds, ds]
+            upper = np.where(ge, np.where(rd > ix, ds - 1, ks),
+                             np.where(zero, ks, ks - 1))
+            c, mx, nmx, nmn = k11_search(row, nxt, ix, upper, held[step])
+            ys[np.flatnonzero(step), n_max - ds] = _sd(ks, c - 1,
+                                                       -s.astype(np.int64))
+            kk[step], i[step] = c - 1, ix - mx
+            p0[step], p1[step] = nmx, nmn
+            d[step] = ds - 1
+    # n == 2
+    p = ((2 * kk + 1) & M32).astype(np.uint32)
+    s2 = i >= p
+    i = np.where(s2, i - p, i)
+    k0 = kk
+    kk = ((i.astype(np.int64) + 1) & M32) >> 1
+    i = np.where(kk > 0, i - ((2 * kk - 1) & M32).astype(np.uint32), i)
+    ys[:, n_max - 2] = _sd(k0, kk, -s2.astype(np.int64))
+    # n == 1 (C: s = -(int)i)
+    si = -i.view(np.int32).astype(np.int64)
+    ys[:, n_max - 1] = _sd(kk, 0, si)
+    ys = ys.astype(np.int32)
+    if not align:
+        return ys
+    j = np.arange(n_max)[None, :]
+    src = np.clip(n_max - n[:, None] + j, 0, n_max - 1)
+    return np.where(j < n[:, None], np.take_along_axis(ys, src, 1), 0)
+
+
+def _k11_leaves(case, sample):
+    """(n, k, idx) of a K11 corpus: celt_taps' random leaves (4,096, seed
+    11) and edges, the sample's leaves, and leaves outside the walk's
+    range (n in [-3, 110), k in [-3, 140), any index)."""
+    from iamf_tpu_torch.tools import celt_taps
+
+    if case == "sample":
+        return sample[0][:3]
+    if case == "random":
+        return celt_taps.random_leaves(np.random.default_rng(11), 4096)
+    if case == "edges":
+        return celt_taps.edge_leaves()
+    rng = np.random.default_rng(5)
+    return (rng.integers(-3, 110, 600).astype(np.int32),
+            rng.integers(-3, 140, 600).astype(np.int32),
+            rng.integers(0, 1 << 32, 600, dtype=np.uint64).astype(np.uint32))
+
+
+@pytest.mark.parametrize("runs", [True, False])
+@pytest.mark.parametrize("n_max", [96, 24])
+@pytest.mark.parametrize("case", ["random", "edges", "sample", "outside"])
+def test_k11_warp_walk_matches_twin(case, n_max, runs, sample):
+    """k11_model, with the runs of zero steps and a step a dimension, bit
+    for bit equal to cwrsi_plain, both layouts."""
+    n, k, idx = _k11_leaves(case, sample)
+    tn, tk = torch.from_numpy(n), torch.from_numpy(k)
+    ti = torch.from_numpy(idx.view(np.int32)).view(torch.uint32)
+    for align in (True, False):
+        want = dc.cwrsi_plain(tn, tk, ti, align, n_max).numpy()
+        assert np.array_equal(k11_model(n, k, idx, align, n_max, runs), want)
+
+

@@ -748,6 +748,99 @@ def test_k11_matches_plain(dev, celt, align, n_max):
             n[sel], k[sel], idx[sel])[:, :n_max])
 
 
+def _k11_corpus(name):
+    """(n, k, idx) numpy: celt_taps' random leaves (4,096, seed 11) and
+    edges; the random leaves' first 1, 31 and 33; 2,112 leaves all of
+    n = 96, k in [1, 128], the index uniform in [0, V(96, k))."""
+    from iamf_tpu_torch.tools import celt_taps
+
+    if name == "edges":
+        return celt_taps.edge_leaves()
+    if name != "all96":
+        n, k, idx = celt_taps.random_leaves(np.random.default_rng(11), 4096)
+        cut = {"random": 4096, "one": 1, "31": 31, "33": 33}[name]
+        return n[:cut], k[:cut], idx[:cut]
+    rng = np.random.default_rng(96)
+    k = rng.integers(1, 129, size=2112)
+    idx = np.array([rng.integers(0, celt_taps.v_count(96, int(b)))
+                    for b in k], np.uint32)
+    return np.full(2112, 96, np.int32), k.astype(np.int32), idx
+
+
+@pytest.mark.parametrize("align,n_max", [(True, 96), (False, 96),
+                                         (True, 24), (False, 24)])
+@pytest.mark.parametrize("name", ["random", "edges", "one", "31", "33",
+                                  "all96"])
+def test_k11_corpora(dev, name, align, n_max):
+    """K11 bit for bit against its twin in one launch on every leaf of a
+    corpus (at n_max 24 too, the leaves above it included: both clamp),
+    and the aligned rows at n_max 96 against the native walk."""
+    from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
+
+    n, k, idx = _k11_corpus(name)
+    args = [torch.from_numpy(a) for a in (n, k, idx)]
+    dc.K11.reset()
+    got = dc.cwrsi_batch(*(a.to(dev) for a in args), align, n_max)
+    torch.cuda.synchronize()
+    assert dc.K11.launches == 1 and dc.K11.plain_on_cuda == 0
+    assert torch.equal(got.cpu(), dc.cwrsi_plain(*args, align, n_max))
+    if align and n_max == 96:
+        assert np.array_equal(got.cpu().numpy(),
+                              dc.host_reference(n, k, idx))
+
+
+def test_k11_leaf_counts_around_the_grid(dev):
+    """K11 bit for bit against its twin, one launch a call, on leaf counts
+    around its grid's limits: min(ceil(L / WARPS), SMs * BLOCKS_SM)
+    blocks, block b taking leaves b + grid m, WARPS * 32 a round. Below,
+    at and past the grid's full width; one round of every block full and
+    one leaf past it. The leaves are the random corpus's, repeated."""
+    import re
+
+    from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
+
+    src = open(os.path.join(ROOT, "iamf_tpu_torch", "csrc",
+                            "celt_cwrsi.cu")).read()
+    warps, blocks_sm = (int(re.search(rf"constexpr int {c} = (\d+);",
+                                      src).group(1))
+                        for c in ("WARPS", "BLOCKS_SM"))
+    full = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * blocks_sm
+    corpus = _k11_corpus("random")
+    for L in (warps * (full - 1), warps * (full - 1) + 1, warps * full,
+              warps * full + 1, full * warps * 32, full * warps * 32 + 1):
+        args = [torch.from_numpy(np.resize(a, L)) for a in corpus]
+        dc.K11.reset()
+        got = dc.cwrsi_batch(*(a.to(dev) for a in args), True, 96)
+        assert dc.K11.launches == 1, L
+        assert torch.equal(got.cpu(), dc.cwrsi_plain(*args, True, 96)), L
+
+
+def test_k11_every_n_max(dev):
+    """K11 bit for bit against its twin at every n_max in [2, 96], both
+    layouts, one launch a call: on the random corpus's first 512 leaves,
+    the edges and 300 leaves outside the walk's range (n in [-3, 110), k
+    in [-3, 140), any index; kernel and twin treat them alike)."""
+    from iamf_tpu_torch.codecs.opus import device_cwrsi as dc
+
+    rng = np.random.default_rng(5)
+    outside = (rng.integers(-3, 110, 300).astype(np.int32),
+               rng.integers(-3, 140, 300).astype(np.int32),
+               rng.integers(0, 1 << 32, 300, dtype=np.uint64).astype(
+                   np.uint32))
+    parts = (_k11_corpus("random"), _k11_corpus("edges"), outside)
+    args = [torch.from_numpy(np.concatenate([p[j][:512] for p in parts]))
+            for j in range(3)]
+    on_dev = [a.to(dev) for a in args]
+    for n_max in range(2, 97):
+        for align in (True, False):
+            dc.K11.reset()
+            got = dc.cwrsi_batch(*on_dev, align, n_max)
+            assert dc.K11.launches == 1
+            assert torch.equal(got.cpu(), dc.cwrsi_plain(*args, align, n_max)), \
+                (n_max, align)
+
+
 def test_k12_matches_plain(dev, celt):
     """K12's normalize-and-rotate within rel 1e-6 of each row's peak of
     its twin (the normalization alone bit for bit), its rotation alone

@@ -288,10 +288,14 @@ def test_serial_decoder_defaults_to_the_card():
 
 
 def test_sources_import_no_jax():
-    """No module of the port and not chip_smoke.py imports JAX or the JAX
-    package, at module level or inside a function (relative imports stay
-    inside the port)."""
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    """No module of the port, not chip_smoke.py and no perf/ script
+    imports JAX or the JAX package, at module level or inside a function
+    (relative imports stay inside the port)."""
+    perf = os.path.join(ROOT, "perf")
+    paths = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(perf, f) for f in sorted(os.listdir(perf))
+        if f.endswith(".py")]
+    assert os.path.join(perf, "k11.py") in paths
     for dirpath, _, files in os.walk(os.path.join(ROOT, "iamf_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
