@@ -561,16 +561,24 @@ def k2_phase(dev, tag):
     return row
 
 
-def _loud_planar(n_total, nch, burst_lo, burst_hi):
-    """Sine bed at 0.4 FS with a +4 dB burst over [burst_lo, burst_hi)
-    (the _loud_pcm pattern of tests/test_sharded_decoder.py), planar
-    float32 [nch, n_total] at full scale 1.0."""
+def _loud_pcm(n_total, nch, bursts):
+    """Sine bed at 0.4 FS with a +4 dB burst over each [lo, hi) of
+    `bursts` (the _loud_pcm pattern of tests/test_sharded_decoder.py):
+    int PCM [n_total, nch]."""
     from iamf_tpu_torch.tools import streams
 
     pcm = streams.sine_pcm(n_total, nch, 48000, amp=0.4, bits=16, seed=3)
-    burst = streams.sine_pcm(burst_hi - burst_lo, nch, 48000, amp=1.45,
-                             bits=16, seed=4)
-    pcm[burst_lo:burst_hi] = np.clip(burst, -32768, 32767)
+    for lo, hi in bursts:
+        burst = streams.sine_pcm(hi - lo, nch, 48000, amp=1.45, bits=16,
+                                 seed=4)
+        pcm[lo:hi] = np.clip(burst, -32768, 32767)
+    return pcm
+
+
+def _loud_planar(n_total, nch, burst_lo, burst_hi):
+    """_loud_pcm with one burst, planar float32 [nch, n_total] at full
+    scale 1.0."""
+    pcm = _loud_pcm(n_total, nch, [(burst_lo, burst_hi)])
     return (pcm.T / 32768.0).astype(np.float32)
 
 
@@ -2495,6 +2503,110 @@ def celt_phase(dev, tag):
                   db.K13.symbol: launches[db.K13.symbol]}
 
 
+# --- phase 18: the multi-device decoders --------------------------------------
+
+def multidevice_phase(dev, tag, kernels):
+    """ShardedStreamDecoder (4 shards, over the visible cards) on each
+    content against the card's batched decode, with the path's launches
+    and both realtime factors; PipelinedStreamDecoder on the sample; the
+    scaling rows at 1/2/4 shards."""
+    from iamf_tpu_torch.codecs.aac.synth import K7
+    from iamf_tpu_torch.codecs.opus.imdct import K1
+    from iamf_tpu_torch.codecs.opus.synth import K2
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.parallel.pp_decoder import PipelinedStreamDecoder
+    from iamf_tpu_torch.parallel.sharded_decoder import ShardedStreamDecoder
+    from iamf_tpu_torch.tools import scaling_bench, streams
+
+    L = streams.ChannelLayout
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    n30 = 1500  # 30 s of 960-sample frames; 4 shards of 375
+    sample = scaling_bench.content("opus")
+    # bursts over frames [b - 2, b + 2) of each shard boundary b: the
+    # limiter's curve is live where its state crosses to the next shard
+    loud = streams.build_pcm_layout_stream(
+        L.L714, n_frames=n30, pcm_override=_loud_pcm(
+            n30 * FRAME, 12, [((b - 2) * FRAME, (b + 2) * FRAME)
+                              for b in (375, 750, 1125)]))[0]
+    aac = streams.build_aac_layout_stream(L.L714, n_frames=1407, seed=5)[0]
+    two = streams.build_two_element_stream(n_frames=n30,
+                                           gain2_q78=-(3 << 8))[0]
+    print(f"multi-device: {len(cards)} visible card(s), the shards "
+          f"{'on the one card' if len(cards) == 1 else 'in blocks over them'}"
+          f" {tag}")
+
+    def counted(fn):
+        fn()  # warm-up
+        for k in kernels:
+            k.reset()
+        out = fn()
+        return (out, {k.symbol: k.launches for k in kernels},
+                {k.symbol: k.plain_on_cuda for k in kernels})
+
+    cases = (  # label, stream, sound system, the batched decode's B, mesh,
+        # the path's kernels
+        ("pcm 7.1.4 30 s loud", loud, 9, B_MAIN, dict(n_devices=4), (K3,)),
+        ("opus sample", sample, 9, B_OPUS, dict(n_devices=4), (K1, K2, K3)),
+        ("aac 7.1.4 30 s", aac, 9, B_MAIN, dict(n_devices=4), (K7, K3)),
+        ("two-element 30 s, (frames, elements) 2 x 2", two, 0, B_MAIN,
+         dict(n_devices=4, element_axis=2), (K3,)),
+        ("opus sample, (frames, substreams) 2 x 2", sample, 9, B_OPUS,
+         dict(n_devices=4, substream_axis=2), (K1, K2, K3)),
+    )
+    for label, data, ss, bf, mesh, must in cases:
+        def sharded():
+            return ShardedStreamDecoder(data, sound_system=ss, device=dev,
+                                        **mesh).decode_all()
+
+        def batched():
+            return BatchedStreamDecoder(data, sound_system=ss,
+                                        batch_frames=bf,
+                                        device=dev).decode_all()
+
+        got, launches, plain = counted(sharded)
+        want = batched()
+        d = _lsb(got, want)
+        peak = int(np.abs(want.astype(np.int32)).max())
+        print(f"sharded {label}: shape {got.shape}, max|diff| vs the card's "
+              f"batched decode {d} LSB, peak {peak}; launches {launches}")
+        check(got.shape == want.shape and d <= 1, f"sharded {label}: {d} LSB")
+        check(all(launches[k.symbol] > 0 for k in must),
+              f"sharded {label}: a kernel of the path did not launch")
+        check(not any(plain.values()), f"sharded {label}: a twin on CUDA")
+        ws, wb = [], []
+        for _ in range(3):  # in turns
+            ws += timed(sharded, 1)
+            wb += timed(batched, 1)
+        secs = got.shape[0] / 48000.0
+        print(f"sharded {label}: realtime {secs / np.median(ws):.2f}x "
+              f"({_ms(ws)} ms), batched (B={bf}) {secs / np.median(wb):.2f}x "
+              f"({_ms(wb)} ms), median of 3 each {tag}")
+        if secs >= 10:
+            trace_decode(sharded, f"sharded {label}")
+            trace_decode(batched, f"batched {label}")
+
+    pp_devs = [cards[0], cards[min(1, len(cards) - 1)]]
+    got, launches, plain = counted(lambda: PipelinedStreamDecoder(
+        sample, devices=pp_devs, sound_system=9,
+        batch_frames=B_OPUS).decode_all())
+    want = BatchedStreamDecoder(sample, sound_system=9, batch_frames=B_OPUS,
+                                device=dev).decode_all()
+    d = _lsb(got, want)
+    print(f"pipelined opus sample on {[str(x) for x in pp_devs]}: max|diff| "
+          f"vs the batched decode {d} LSB (equal: {np.array_equal(got, want)})"
+          f"; launches {launches}")
+    check(got.shape == want.shape and d <= 1, f"pipelined: {d} LSB")
+    check(all(launches[k.symbol] > 0 for k in (K1, K2, K3)),
+          "pipelined: a kernel of the path did not launch")
+    check(not any(plain.values()), "pipelined: a twin on CUDA")
+
+    for kind in ("pcm", "opus"):
+        for r in scaling_bench.rows(scaling_bench.content(kind, n30), dev,
+                                    shards=(1, 2, 4)):
+            print(f"scaling {kind}: {json.dumps(r)} {tag}")
+
+
 def main() -> int:
     from iamf_tpu_torch import require_cuda
     from iamf_tpu_torch.codecs.aac.synth import K7
@@ -2554,7 +2666,8 @@ def main() -> int:
                                      dev, tag)
     rows += celt_rows
     launches.update(celt_launches)
-    print(f"phases 2-17: {time.perf_counter() - t_all:.1f} s wall")
+    phase("18 multi-device", multidevice_phase, dev, tag, kernels)
+    print(f"phases 2-18: {time.perf_counter() - t_all:.1f} s wall")
 
     meta = {
         "k1_imdct_tdac": ("iamf_tpu_torch/csrc/imdct.cu",

@@ -65,6 +65,17 @@ def pack_params(d: dict) -> np.ndarray:
     return out
 
 
+def neutral_rows(shape: tuple) -> np.ndarray:
+    """Packed rows [*shape, 973] that synthesize silence: zero spectra and
+    gains, legal comb periods (MINPERIOD) so the comb never reads before
+    its history. The batch and flush padding, and the sharded decoders'
+    rows past the stream's ends and padded lanes."""
+    z = np.zeros(tuple(shape) + (FRAME + N_PARAMS,), np.float32)
+    for col in (PK_T_OLD, PK_T_CUR, PK_T_NEW):
+        z[..., FRAME + col] = MINPERIOD
+    return z
+
+
 class SynthParams(NamedTuple):
     """Per-frame synthesis inputs, [B] opus frames x [L] channel lanes."""
 
@@ -334,6 +345,27 @@ def comb_deemph(window, y, pk_buf, hist, demem):
     if y.is_cuda:
         return comb_deemph_cuda(window, y, pk_buf, hist, demem)
     return comb_deemph_plain(window, y, pk_buf, hist, demem)
+
+
+def shard_stages(synth: CeltSynth, buf, preroll: int):
+    """The shard-parallel half of the synthesis (parallel/sharded_decoder.py;
+    tpu_synth.shard_stages): K1 over a shard's preroll + F frames of the
+    packed buffer [preroll + F, L, 973] from a zero TDAC tail, the preroll
+    rows dropped. The TDAC mirror mixes a block's first 60 samples with the
+    previous block's raw tail only, so one preroll frame makes every kept
+    frame exact. Returns y [F, L, 960]; the comb + de-emphasis IIRs carry
+    state over the whole timeline and run as a chain over the shards
+    (comb_deemph with the packed rows buf[preroll:] and an explicit
+    (hist, demem) carry)."""
+    n = buf.shape[-1] - N_PARAMS
+    if n != FRAME:
+        raise NotImplementedError(
+            f"Opus synthesis for n={n}: only CELT-960 non-hybrid is "
+            "ported (ROADMAP.md §1 item 5)")
+    transient = buf[..., n + PK_TRANSIENT] != 0
+    tail0 = buf.new_zeros((buf.shape[1], 60))
+    y, _ = imdct_overlap(synth.mats, buf[..., :n], transient, tail0)
+    return y[preroll:]
 
 
 def synthesize_packed(synth: CeltSynth, buf, carry: SynthCarry):

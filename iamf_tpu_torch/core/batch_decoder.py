@@ -134,32 +134,39 @@ def lane_synth(fn, inputs: tuple, carry):
             else type(c0)(*map(torch.stack, zip(*cs))))
 
 
-def fused_decode(cfg: PipelineConfig, kinds: tuple, synths: dict,
-                 carry: dict, params: dict, bufs: list):
-    """Codec synthesis for each element, then the decode pipeline, for one
-    batch of S streams (S = 1 for one decoder; core/serving.py stacks a
-    bucket). synths: the synthesis constants by kind ("opus": CeltSynth,
-    "aac": aac_synth.Tables); bufs: per element [S, B, ...] (an AAC
-    element's input is (spec, meta)); carry: per-stream state with a
-    leading stream axis. Returns (carry, pcm [S, B*T, out] int)."""
+def synthesize_elements(kinds: tuple, synths: dict, syn: list, bufs: list):
+    """Each element's codec synthesis for one batch of S streams: synths
+    the constants by kind ("opus": CeltSynth, "aac": aac_synth.Tables);
+    bufs per element [S, B, ...] (an AAC element's (spec, meta)); syn the
+    synthesis carries, a leading stream axis each. Returns (xs, syn'):
+    the decode pipeline's inputs and the next carries."""
     xs = []
-    syn = []
+    out = []
     for i, kind in enumerate(kinds):
         if kind == "opus":
             x, s = lane_synth(
                 functools.partial(opus_synth.synthesize_packed,
-                                  synths["opus"]), (bufs[i],),
-                carry["syn"][i])
+                                  synths["opus"]), (bufs[i],), syn[i])
         elif kind == "aac":
             x, s = lane_synth(
                 functools.partial(aac_synth.synthesize, synths["aac"]),
-                bufs[i], carry["syn"][i])
+                bufs[i], syn[i])
         elif kind == "raw":
-            x, s = bufs[i], carry["syn"][i]
+            x, s = bufs[i], syn[i]
         else:
             raise NotImplementedError(f"element kind {kind!r}")
         xs.append(x)
-        syn.append(s)
+        out.append(s)
+    return xs, out
+
+
+def fused_decode(cfg: PipelineConfig, kinds: tuple, synths: dict,
+                 carry: dict, params: dict, bufs: list):
+    """Codec synthesis for each element (synthesize_elements), then the
+    decode pipeline, for one batch of S streams (S = 1 for one decoder;
+    core/serving.py stacks a bucket). carry: per-stream state with a
+    leading stream axis. Returns (carry, pcm [S, B*T, out] int)."""
+    xs, syn = synthesize_elements(kinds, synths, carry["syn"], bufs)
     pipe, pcm = decode_frames(cfg, carry["pipe"], params, xs)
     return {"pipe": pipe, "syn": syn}, pcm
 
@@ -315,12 +322,7 @@ class _HostPlan:
             out = []
             for e, x in zip(self.dec.elems, self.elem_all_x):
                 if e.opus:
-                    z = np.zeros(
-                        (B, e.lanes, opus_synth.FRAME + opus_synth.N_PARAMS),
-                        np.float32)
-                    for col in (opus_synth.PK_T_OLD, opus_synth.PK_T_CUR,
-                                opus_synth.PK_T_NEW):
-                        z[..., opus_synth.FRAME + col] = opus_synth.MINPERIOD
+                    z = opus_synth.neutral_rows((B, e.lanes))
                 elif e.aac:
                     z = (np.zeros((B, e.lanes, aac_synth.FRAME), np.float32),
                          np.zeros((B, e.lanes, 3), np.int32))
@@ -696,12 +698,8 @@ class BatchedStreamDecoder:
         buf[..., n:n + opus_synth.N_PARAMS] = opus_synth.pack_params(d)
         pad = B - count
         if pad:
-            padbuf = np.zeros((pad,) + buf.shape[1:], np.float32)
-            # neutral rows: zero spectra/gains, legal comb periods
-            for col in (opus_synth.PK_T_OLD, opus_synth.PK_T_CUR,
-                        opus_synth.PK_T_NEW):
-                padbuf[..., n + col] = opus_synth.MINPERIOD
-            buf = np.concatenate([buf, padbuf])
+            buf = np.concatenate([buf, opus_synth.neutral_rows(
+                (pad,) + buf.shape[1:-1])])
         return buf
 
     def _aac_entropy(self, e: _ElemCtx, packets, start, count, B):
@@ -797,7 +795,6 @@ class BatchedStreamDecoder:
         """Decode this segment (decode_all's contract for one segment)."""
         B = self.batch_frames
         T = self.frame_size
-        n = self.n_frames
         dev = self.device
         resample = self.needs_resample
         if resample and not fetch:
@@ -844,13 +841,16 @@ class BatchedStreamDecoder:
             return kept
         if resample:
             return self._resample_tail(torch.cat(kept), want)
-        full = full.numpy()
+        return self.kept(full.numpy(), want)
+
+    def kept(self, full: np.ndarray, want: int) -> np.ndarray:
+        """The stream's samples in the kept calls' PCM [rows, C]: the
+        limiter's look-ahead head dropped (the trailing flush calls pushed
+        zeros through its delay line), then the edge trims."""
         if self.cfg.limiter is not None:
-            # limiter look-ahead: drop the first delay_size rows; the
-            # trailing flush batches pushed zeros through the delay line
             d = self.cfg.limiter.delay_size
             if self.cfg.head_trim:
                 return full[d: d + want]
-            out = full[d: d + n * T]
+            out = full[d: d + self.n_frames * self.frame_size]
             return out[self.lead: self.lead + want]
         return full[self.lead: self.lead + want]

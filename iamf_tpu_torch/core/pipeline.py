@@ -210,6 +210,59 @@ def _element_batch(cfg: PipelineConfig, i: int, x, fac, rg, m_prev, m_cur):
     return r
 
 
+def window_params(params: dict, lo: int, count: int, device) -> dict:
+    """Frames [lo, lo + count) of ``stream_params``' tensors (padded past
+    the stream's end with its neutral rows) on `device`, the stream axis of
+    1 kept: one shard's timeline (parallel/sharded_decoder.py). The
+    matrices are whole."""
+    def rows(a):
+        return a[:, lo:lo + count].to(device)
+
+    out = {k: [rows(a) for a in params[k]]
+           for k in ("factors", "rg", "mat_idx", "elem_gain")}
+    out["mats"] = [m.to(device) for m in params["mats"]]
+    out["out_gain"] = rows(params["out_gain"])
+    return out
+
+
+def element_mix(cfg: PipelineConfig, i: int, params: dict, x):
+    """Element i's demixed, rendered and gained frames [F, out, T] from its
+    input x [F, C_in, T] and a ``window_params`` window of F frames (the
+    counterpart of _element_frame and its gain in iamf_tpu/core/
+    pipeline.py:146, :196). Loudspeaker elements only: the sharded decoders
+    render no binaural output."""
+    es = cfg.elements[i]
+    if es.hrtf_taps:
+        raise NotImplementedError("element_mix: binaural elements run in "
+                                  "decode_frames only")
+    mi = params["mat_idx"][i][0]
+    mats = params["mats"][i][0]
+    r = _element_batch(cfg, i, x, params["factors"][i][0],
+                       params["rg"][i][0], mats[mi[:, 0]], mats[mi[:, 1]])
+    g = params["elem_gain"][i][0]
+    return r * g[:, None, :] if es.per_sample_gain else r * g[:, None, None]
+
+
+def out_mix(cfg: PipelineConfig, params: dict, mixed):
+    """The output gain over the summed elements [F, out, T] of a
+    ``window_params`` window -> the shard's mixed timeline [out, F*T]."""
+    og = params["out_gain"][0]
+    mixed = (mixed * og[:, None, :] if cfg.per_sample_out_gain
+             else mixed * og[:, None, None])
+    return mixed.transpose(0, 1).reshape(cfg.out_channels, -1)
+
+
+def shard_mix(cfg: PipelineConfig, params: dict, xs: list):
+    """One shard's mix over its F frames: every element's ``element_mix``
+    summed in element order, then the output gain (decode_frames' order).
+    xs: per element [F, C_in, T]. Returns [out, F*T]."""
+    mixed = None
+    for i, x in enumerate(xs):
+        r = element_mix(cfg, i, params, x)
+        mixed = r if mixed is None else mixed + r
+    return out_mix(cfg, params, mixed)
+
+
 def decode_frames(cfg: PipelineConfig, carry: dict, params: dict, xs: list):
     """Decode one batch of B = cfg.batch_frames frames of S streams.
 

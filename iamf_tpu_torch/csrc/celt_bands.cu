@@ -740,7 +740,7 @@ extern "C" int iamf_k13_bands(const void* const* fields,
                         gain,    fill,    vec,     post,    pre};
   for (const void* a : bulk)
     if ((size_t)a % 16) return (int)cudaErrorMisalignedAddress;
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  const cudaError_t attr = cudaFuncSetAttribute(
       k13_bands, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sizeof(Smem));
   if (attr != cudaSuccess) return (int)attr;

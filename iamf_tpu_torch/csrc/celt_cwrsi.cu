@@ -323,7 +323,7 @@ extern "C" int iamf_k11_cwrsi(const void* n, const void* k, const void* idx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L < 1 || n_max < 2 || n_max > N_MAX || (size_t)rows % 16)
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  const cudaError_t attr = cudaFuncSetAttribute(
       k11_cwrsi, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes(N_MAX));
   if (attr != cudaSuccess) return (int)attr;

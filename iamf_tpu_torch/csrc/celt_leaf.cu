@@ -371,7 +371,7 @@ extern "C" int iamf_k12_normrot(const void* y, const void* xin,
         (float*)out);
     return (int)cudaGetLastError();
   }
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  const cudaError_t attr = cudaFuncSetAttribute(
       k12_normrot, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sizeof(RotSmem));
   if (attr != cudaSuccess) return (int)attr;

@@ -137,8 +137,11 @@ class Kernel:
         self._fn = None
 
     def __call__(self, *args) -> None:
-        """Launch on the current stream of the tensors' device. Tensor
-        arguments go as device pointers; each must be on that CUDA device."""
+        """Launch on the current stream of the tensors' device, with that
+        device current (a launch into another device's stream fails: the
+        multi-device decoders keep shards on several cards). Tensor
+        arguments go as device pointers; each must be on that CUDA
+        device."""
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         dev = tensors[0].device
         if any(t.device != dev for t in tensors) or dev.type != "cuda":
@@ -151,9 +154,10 @@ class Kernel:
             fn.argtypes = [*self.argtypes, P]
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                         for a in args),
-                       torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):
+            err = self._fn(*(a.data_ptr() if isinstance(a, torch.Tensor)
+                             else a for a in args),
+                           torch.cuda.current_stream(dev).cuda_stream)
         if err:
             msg = load().iamf_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")

@@ -23,7 +23,9 @@ with an equal state; the binaural, 44.1 kHz, AAC and true-peak decodes
 1 LSB against the CPU run. The frame-serial pieces (dsp/limiter.Limiter,
 dsp/binaural.HRTFRenderer) at 960- and 1024-sample frames: one K3 (and
 K9) or K8 launch a frame against the twins, K3 0 LSB with an equal state,
-K8 1e-4; the serial IAMFDecoder 1 LSB against its CPU run.
+K8 1e-4; the serial IAMFDecoder 1 LSB against its CPU run. The sharded
+decoder on every mesh 1 LSB against the card's batched decode (the shards
+over the visible cards), the pipelined one bit for bit.
 """
 
 import os
@@ -594,6 +596,114 @@ def test_server_on_card(dev):
     # the head-trim call)
     assert fleet_launches == [3, 3, 6]
     assert all(k.plain_on_cuda == 0 for k in kernels)
+
+
+SHARDED = {
+    # name: (stream, sound system, mesh keywords, kernels of the path)
+    "pcm714_loud_1d": (lambda s, sample: s.build_pcm_layout_stream(
+        ChannelLayout.L714, n_frames=24, amp=0.95)[0], 9,
+        dict(n_devices=4), ("K3",)),
+    "sample_1d": (lambda s, sample: sample, 9, dict(n_devices=4),
+                  ("K1", "K2", "K3")),
+    "sample_elements": (lambda s, sample: sample, 9,
+                        dict(n_devices=4, element_axis=2),
+                        ("K1", "K2", "K3")),
+    "two_element_elements": (lambda s, sample: s.build_two_element_stream(
+        n_frames=16, gain2_q78=-(3 << 8))[0], 0,
+        dict(n_devices=4, element_axis=2), ("K3",)),
+    "sample_substreams": (lambda s, sample: sample, 9,
+                          dict(n_devices=4, substream_axis=2),
+                          ("K1", "K2", "K3")),
+    "sample_lane_padding": (lambda s, sample: sample, 9,
+                            dict(n_devices=5, substream_axis=5),
+                            ("K1", "K2", "K3")),
+    "aac714_1d": (lambda s, sample: s.build_aac_layout_stream(
+        ChannelLayout.L714, n_frames=24)[0], 9, dict(n_devices=4),
+        ("K7", "K3")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED))
+def test_sharded_on_card(dev, name):
+    """ShardedStreamDecoder on the card (the shards over the visible cards,
+    several a card when there are fewer): within 1 LSB of the card's
+    batched decode (cuBLAS may pick another render product for another
+    frame count), the path's kernels launched, no twin on the card. The
+    1-D sample runs K1, K2 and K3 once a shard."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.parallel.sharded_decoder import \
+        ShardedStreamDecoder
+    from iamf_tpu_torch.tools import streams
+
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    build, ss, mesh_kw, must = SHARDED[name]
+    data = build(streams, sample)
+    kernels = {"K1": imdct.K1, "K2": synth.K2, "K3": limiter.K3,
+               "K7": aac_synth.K7}
+    for k in kernels.values():
+        k.reset()
+    got = ShardedStreamDecoder(data, sound_system=ss, device=dev,
+                               **mesh_kw).decode_all()
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = BatchedStreamDecoder(data, sound_system=ss, batch_frames=8,
+                                device=dev).decode_all()
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    assert all(launches[n] > 0 for n in must), launches
+    assert all(k.plain_on_cuda == 0 for k in kernels.values())
+    if name == "sample_1d":
+        assert launches == {"K1": 4, "K2": 4, "K3": 4, "K7": 0}
+
+
+def test_sharded_true_peak_on_card(dev, monkeypatch):
+    """IAMF_TRUEPEAK=1 on the sharded path: K9 meters each shard inside
+    K3's chain (tp_hist handed along), equal to the card's batched
+    decode."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.parallel.sharded_decoder import \
+        ShardedStreamDecoder
+    from iamf_tpu_torch.tools import streams
+
+    monkeypatch.setenv("IAMF_TRUEPEAK", "1")
+    data = streams.build_pcm_layout_stream(
+        ChannelLayout.L510, n_frames=24,
+        pcm_override=streams.isp_tone_pcm(24, 6))[0]
+    limiter.K9.reset()
+    got = ShardedStreamDecoder(data, n_devices=4, sound_system=1,
+                               device=dev).decode_all()
+    # a K9 launch a K3 call: the 4 shards' chain and the drain (24 frames
+    # fill the mesh, so one more call on delay_size zeros)
+    assert limiter.K9.launches == 5 and limiter.K9.plain_on_cuda == 0
+    want = BatchedStreamDecoder(data, sound_system=1, batch_frames=8,
+                                device=dev).decode_all()
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
+def test_pipelined_on_card(dev):
+    """PipelinedStreamDecoder with both stages on the card (two entries of
+    one card; two cards where visible): bit-equal to the batched decode on
+    the Opus sample and on loud PCM."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.parallel.pp_decoder import PipelinedStreamDecoder
+    from iamf_tpu_torch.tools import streams
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [cards[0], cards[-1]]
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    loud = streams.build_pcm_layout_stream(ChannelLayout.L510, n_frames=12,
+                                           amp=0.95)[0]
+    for data, ss in ((sample, 9), (loud, 1)):
+        for k in (imdct.K1, synth.K2, limiter.K3):
+            k.reset()
+        got = PipelinedStreamDecoder(data, devices=devices, sound_system=ss,
+                                     batch_frames=4).decode_all()
+        want = BatchedStreamDecoder(data, sound_system=ss, batch_frames=4,
+                                    device=cards[0]).decode_all()
+        assert np.array_equal(got, want)
+        assert limiter.K3.launches > 0 and limiter.K3.plain_on_cuda == 0
 
 
 @pytest.mark.parametrize("true_peak", [False, True])

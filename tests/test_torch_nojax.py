@@ -306,7 +306,9 @@ def test_sources_import_no_jax():
                 "codecs/opus/device_cwrsi.py", "codecs/opus/device_leaf.py",
                 "codecs/opus/device_bands.py", "codecs/opus/band_replay.py",
                 "codecs/opus/band_pack.py", "tools/celt_taps.py",
-                "utils/logging.py"):
+                "utils/logging.py", "parallel/mesh.py",
+                "parallel/sharded_decoder.py", "parallel/pp_decoder.py",
+                "tools/scaling_bench.py"):
         assert os.path.join(ROOT, "iamf_tpu_torch", new) in paths, new
     bad = []
     for path in paths:
@@ -524,3 +526,82 @@ def test_celt_entry_points_default_to_the_card():
     bt, lt = device_bands.pack_tensors(pf, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device_bands.run_frame(bt, lt, 5)
+
+
+NOJAX_PARALLEL = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["iamf_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from iamf_tpu_torch.parallel.pp_decoder import PipelinedStreamDecoder
+from iamf_tpu_torch.parallel.sharded_decoder import ShardedStreamDecoder
+from iamf_tpu_torch.tools import scaling_bench
+sample = open(sys.argv[1] + "/iamf_tpu/data/sample_opus_714.iamf",
+              "rb").read()
+sharded = ShardedStreamDecoder(sample, n_devices=4, sound_system=9,
+                               device="cpu").decode_all()
+substreams = ShardedStreamDecoder(sample, n_devices=4, sound_system=9,
+                                  substream_axis=2, device="cpu").decode_all()
+pp = PipelinedStreamDecoder(sample, devices=["cpu", "cpu"], sound_system=9,
+                            batch_frames=8).decode_all()
+rows = scaling_bench.rows(sample, "cpu", shards=(1, 2), reps=1)
+assert [r["shards"] for r in rows] == [1, 2]
+np.savez(sys.argv[2], sharded=sharded, substreams=substreams, pp=pp)
+assert not any(m.split(".")[0] in ("jax", "iamf_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("NOJAX-OK")
+"""
+
+
+def test_parallel_decoders_without_jax(tmp_path):
+    """ShardedStreamDecoder (1-D and (frames, substreams)),
+    PipelinedStreamDecoder and the scaling bench's rows on the Opus sample
+    with JAX and the JAX package blocked, held here to the JAX package's
+    decoders on the same bytes and meshes: <= 1 LSB, same shape."""
+    import jax
+    import numpy as np
+
+    from iamf_tpu.parallel.pp_decoder import PipelinedStreamDecoder as JaxPP
+    from iamf_tpu.parallel.sharded_decoder import ShardedStreamDecoder as Jax
+
+    out = tmp_path / "out.npz"
+    r = subprocess.run([sys.executable, "-c", NOJAX_PARALLEL, ROOT,
+                        str(out)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX-OK" in r.stdout
+    got = np.load(out)
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    want = {
+        "sharded": Jax(sample, n_devices=4, sound_system=9).decode_all(),
+        "substreams": Jax(sample, n_devices=4, sound_system=9,
+                          substream_axis=2).decode_all(),
+        "pp": JaxPP(sample, devices=jax.devices()[:2], sound_system=9,
+                    batch_frames=8).decode_all(),
+    }
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert got[k].shape == w.shape and got[k].dtype == w.dtype, k
+        assert np.abs(got[k].astype(np.int32) - w.astype(np.int32)).max() <= 1
+
+
+def test_parallel_decoders_default_to_the_card():
+    """Both multi-device decoders run on the card unless asked for the CPU:
+    with no card visible they raise, and nothing falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: this checks the refusal")
+    from iamf_tpu_torch.parallel.pp_decoder import PipelinedStreamDecoder
+    from iamf_tpu_torch.parallel.sharded_decoder import ShardedStreamDecoder
+
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    for make in (lambda: ShardedStreamDecoder(data, sound_system=9),
+                 lambda: ShardedStreamDecoder(data, n_devices=4,
+                                              device="cuda"),
+                 lambda: PipelinedStreamDecoder(data, sound_system=9),
+                 lambda: PipelinedStreamDecoder(data,
+                                                devices=["cuda", "cuda"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
