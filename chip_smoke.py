@@ -120,7 +120,19 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      and, for the rotations, one torch.bmm of the gathered bank; then K12
      in its apply_rotations mode on the same 833 rows against that bmm
      (like for like: both take the normalized rows), within rel 1e-6 of
-     each row's peak of its twin and of bmm, with both times.
+     each row's peak of its twin and of bmm, with both times;
+ 18. the multi-device decoders (ShardedStreamDecoder, PipelinedStreamDecoder
+     and the scaling rows), against the card's batched decode;
+ 19. the general Opus operating points: the sample re-TOCed
+     (streams.retoc_opus_stream) to CELT 480 x 2, 240 x 4 and 120 x 8,
+     hybrid 960 and 480 x 2, SILK 960 and mixed hybrid/CELT -> J at
+     batch_frames 8 against the port's CPU decode (<= 1 LSB; on the loud
+     CELT and hybrid content on all but 1e-4 of the samples, <= 16 LSB on
+     those), with K1, K2 and K3 launches from each card run; K1 and K2 at
+     every frame size, and hybrid at 480 and 960, over 128·960 samples a
+     lane against their twins, with times and bounds; celt480x2 looped to
+     1,500 units (30 s) -> J at batch_frames 128, its realtime factor and
+     busy share.
 Each phase prints its wall.
 Every kernel's launch count in the kernels line comes from the run of the
 path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
@@ -378,9 +390,11 @@ def k1_ops(trans) -> float:
 def k1_phase(dev, tag, lib):
     from iamf_tpu_torch.codecs.opus import imdct
 
-    counts = sass_counts(lib, "k1_product", ("HGMMA", "UTMALDG"))
-    print(f"K1 product kernel SASS: {counts}")
-    check(all(counts.values()), f"K1 misses tensor cores or TMA: {counts}")
+    for n in (120, 240, 480, 960):  # the template's instances
+        counts = sass_counts(lib, f"k1_productILi{n}E", ("HGMMA", "UTMALDG"))
+        print(f"K1 product kernel SASS, n={n}: {counts}")
+        check(all(counts.values()),
+              f"K1 n={n} misses tensor cores or TMA: {counts}")
     mats = imdct.FusedMats().to(dev)
     row = dict(name="k1_imdct_tdac", max_abs_err=0.0)
     for B in (B_MAIN, B_OPUS):
@@ -2607,6 +2621,193 @@ def multidevice_phase(dev, tag, kernels):
             print(f"scaling {kind}: {json.dumps(r)} {tag}")
 
 
+# --- phase 19: the general Opus operating points ---------------------------
+
+# variant of the sample -> it is synthesised on the card (K1 + K2)
+OPUS_MODES = {"celt480x2": True, "celt240x4": True, "celt120x8": True,
+              "hybrid960": True, "hybrid480x2": True, "silk960": False,
+              "mixed": False}
+# the loud content's bar (tests/opus_modes.py): <= 1 LSB on all but this
+# share of the samples, and <= LOUD_LSB on those
+LOUD_FRACTION = 1e-4
+LOUD_LSB = 16
+
+
+def loud_check(label, got, want, loud):
+    """got against want: equal shapes, <= 1 LSB, or on the re-TOCed CELT
+    and hybrid content (decoded spectra up to ~1.4e7, float32 ulps of 4-8
+    where the synthesis cancels back into range) <= 1 LSB on all but
+    LOUD_FRACTION of the samples and <= LOUD_LSB on those."""
+    check(got.shape == want.shape, f"{label}: {got.shape} vs {want.shape}")
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    over = int((d > 1).sum())
+    print(f"{label}: shape {got.shape}, max|diff| {int(d.max())} LSB, "
+          f"{over} of {d.size} samples over 1 LSB")
+    if loud:
+        check(over <= LOUD_FRACTION * d.size and d.max() <= LOUD_LSB,
+              f"{label}: {over} samples over 1 LSB, {int(d.max())} LSB")
+    else:
+        check(int(d.max()) <= 1, f"{label}: {int(d.max())} LSB")
+
+
+def k12_mode_rows(dev, n, hybrid, tag):
+    """K1 and K2 at frames of n over 128·960 samples a lane, L = 12 (B =
+    128·960/n frames), reading one packed [B, L, packed_width] buffer in
+    place: K1 within 0.25 at s16 scale of its twin (on the card), K2 <= 1
+    LSB of its twin (on the CPU) with hist' equal; each one's time (CUDA
+    events), device time (torch.profiler) and bound."""
+    from iamf_tpu_torch.codecs.opus import imdct, synth
+
+    B, L = B_MAIN * FRAME // n, LANES
+    rng = np.random.RandomState(n + hybrid)
+    width = synth.packed_width(n, hybrid)
+    buf = np.zeros((B, L, width), np.float32)
+    buf[..., :n] = rng.randn(B, L, n) * 1000.0
+    buf[..., n:n + 13] = _comb_params(rng, B, L)
+    buf[..., n] = rng.rand(B, L) < 0.3  # transient
+    if hybrid:
+        buf[..., n + 13:] = rng.randn(B, L, n) * 2000.0
+    buf_c = torch.from_numpy(buf)
+    buf_d = buf_c.to(dev)
+    trans = buf_d[..., n] != 0
+    tail0 = torch.from_numpy(
+        rng.randn(L, 60).astype(np.float32) * 1024.0).to(dev)
+    mats = imdct.FusedMats(n).to(dev)
+    y, tail = imdct.imdct_overlap_cuda(mats, buf_d[..., :n], trans, tail0)
+    y_p, tail_p = imdct.imdct_overlap_plain(mats, buf_d[..., :n], trans,
+                                            tail0)
+    err1 = max(float((y - y_p).abs().max()),
+               float((tail - tail_p).abs().max()))
+    check(err1 < 0.25, f"K1 n={n}: {err1} against its twin")
+    ms1 = cuda_ms(lambda: imdct.imdct_overlap_cuda(
+        mats, buf_d[..., :n], trans, tail0))
+    plain1 = cuda_ms(lambda: imdct.imdct_overlap_plain(
+        mats, buf_d[..., :n], trans, tail0))
+    dev1, _ = device_ms(lambda: imdct.imdct_overlap_cuda(
+        mats, buf_d[..., :n], trans, tail0), f"K1 n={n}")
+    short = int(trans.sum())
+    ops1 = ((trans.numel() - short) * fft_imdct_flops(2 * n)
+            + short * (n // 120) * fft_imdct_flops(240)
+            + trans.numel() * 2 * (120 + 60))
+    b1 = bound(nbytes(buf_d[..., :n], trans, tail0, y, tail), ops1,
+               FP32_FLOPS)
+
+    window = torch.from_numpy(synth.window120().copy())
+    hist = torch.from_numpy(
+        rng.randn(L, synth.HIST).astype(np.float32) * 3000.0)
+    demem = torch.from_numpy(rng.randn(L).astype(np.float32) * 100.0)
+    w_d, h_d, m_d = window.to(dev), hist.to(dev), demem.to(dev)
+    scratch = torch.empty(L * B * n + L, device=dev)
+
+    def k2():
+        return synth.comb_deemph_cuda(w_d, y, buf_d, h_d, m_d, scratch,
+                                      hybrid)
+
+    pcm, h2, m2 = k2()
+    y_c = y.cpu()
+    t = time.perf_counter()
+    pcm_p, h2_p, m2_p = synth.comb_deemph_plain(window, y_c, buf_c, hist,
+                                                demem, hybrid)
+    plain2 = (time.perf_counter() - t) * 1e3
+    err2 = float(((pcm.cpu() - pcm_p) * 32768.0).abs().max())
+    m_err = float((m2.cpu() - m2_p).abs().max())
+    m_tol = 1e-6 * max(1.0, float(m2_p.abs().max()))
+    check(err2 <= 1.0, f"K2 n={n} hybrid={hybrid}: {err2} LSB")
+    check(torch.equal(h2.cpu(), h2_p), f"K2 n={n}: comb history differs")
+    check(m_err <= m_tol, f"K2 n={n}: de-emphasis memory {m_err}")
+    ms2 = cuda_ms(k2)
+    dev2, per = device_ms(k2, f"K2 n={n} hybrid={hybrid}")
+    a = sum(v for k, v in per.items() if "comb_kernel" in k)
+    b2 = bound(nbytes(y, buf_d[..., n:], h_d, m_d, w_d, pcm, h2, m2),
+               (16 + hybrid) * y.numel(), FP32_FLOPS)
+    label = f"n={n}{' hybrid' if hybrid else ''} [B={B}, L={L}]"
+    print(f"K1 {label}: max|diff| {err1:.3e} (bound 0.25); {ms1:.4f} ms per "
+          f"call, device {dev1:.4f} ms, twin (torch.matmul on the card) "
+          f"{plain1:.4f} ms, bound {b1['bound_ms']:.4f} ms "
+          f"({b1['bound_by']}) {tag}")
+    print(f"K2 {label}: max|diff| {err2:.0f} LSB (bound 1), hist' equal, "
+          f"demem' {m_err:.3e} (bound {m_tol:.3e}); {ms2:.4f} ms per call, "
+          f"device {dev2:.4f} ms (phase A {a:.4f} ms), twin (CPU) "
+          f"{plain2:.1f} ms, bound {b2['bound_ms']:.4f} ms "
+          f"({b2['bound_by']}) {tag}")
+
+
+def opus_modes_phase(dev, tag, kernels):
+    """The general Opus operating points: the Opus sample re-TOCed to each
+    variant of streams.OPUS_VARIANTS -> J at batch_frames 8 on the card
+    against the port's CPU decode (loud_check), with K1, K2 and K3
+    launches counted from each card run (K1 and K2 on the device-synthesis
+    variants only, K3 on all); K1 and K2 at each frame size (and hybrid at
+    480 and 960) over 128·960 samples a lane against their twins, with
+    times and bounds; one timed cell, celt480x2 with its 16 units looped
+    to 1,500 (30 s) -> J at batch_frames 128: its first 14 units against
+    the card's decode of the 16-unit stream, its realtime factor and the
+    device's busy share."""
+    from iamf_tpu_torch.codecs.opus.imdct import K1
+    from iamf_tpu_torch.codecs.opus.synth import K2
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from iamf_tpu_torch.dsp.limiter import K3
+    from iamf_tpu_torch.tools import streams
+
+    sample = open(os.path.join(ROOT, "iamf_tpu", "data",
+                               "sample_opus_714.iamf"), "rb").read()
+    card_out = {}
+    for name, device_synth in OPUS_MODES.items():
+        data = streams.retoc_opus_stream(sample, name)
+
+        def run(device):
+            d = BatchedStreamDecoder(data, sound_system=9, batch_frames=8,
+                                     device=device)
+            return d.decode_all(), d.stats["elements"][0]
+
+        for k in kernels:
+            k.reset()
+        got, st = run(dev)
+        launches = {k.symbol: k.launches for k in (K1, K2, K3)}
+        plain = {k.symbol: k.plain_on_cuda for k in kernels}
+        want, st_c = run("cpu")
+        loud_check(f"opus {name} -> ssJ ({st['path']}, "
+                   f"{st.get('opus_cfg')}) vs CPU run", got, want,
+                   device_synth)
+        print(f"opus {name} launches {launches}")
+        check(st == st_c, f"{name}: stats differ {st} {st_c}")
+        check(launches[K3.symbol] > 0, f"{name}: K3 did not launch")
+        check(all((launches[k.symbol] > 0) == device_synth for k in (K1, K2)),
+              f"{name}: K1/K2 launches {launches}")
+        check(not any(plain.values()), f"{name}: a plain twin ran on CUDA")
+        card_out[name] = got
+    for n, hybrid in ((120, False), (240, False), (480, False), (960, False),
+                      (480, True), (960, True)):
+        k12_mode_rows(dev, n, hybrid, tag)
+
+    looped = streams.loop_units(
+        streams.retoc_opus_stream(sample, "celt480x2"), 1500)
+
+    def decode():
+        return BatchedStreamDecoder(looped, sound_system=9, batch_frames=128,
+                                    device=dev).decode_all()
+
+    decode()  # warm-up
+    for k in kernels:
+        k.reset()
+    out = decode()
+    launches = {k.symbol: k.launches for k in (K1, K2, K3)}
+    head = 14 * FRAME
+    loud_check("opus celt480x2 30 s -> ssJ, first 14 units vs the 16-unit "
+               "card decode", out[:head], card_out["celt480x2"][:head], True)
+    check(np.isfinite(out).all() and out.shape == (1500 * FRAME - 312, 12),
+          f"30 s celt480x2: shape {out.shape}")
+    check(all(v > 0 for v in launches.values()),
+          f"30 s celt480x2: launches {launches}")
+    walls = timed(decode, 3)
+    secs = out.shape[0] / 48000.0
+    busy = trace_decode(decode, "opus celt480x2 30 s")
+    print(f"opus celt480x2 30 s realtime factor {secs / np.median(walls):.2f}x"
+          f" (median of {len(walls)}; {secs:.3f} s audio in {_ms(walls)} ms "
+          f"wall, batch_frames=128), busy {busy:.1f} %, launches {launches} "
+          f"{tag}")
+
+
 def main() -> int:
     from iamf_tpu_torch import require_cuda
     from iamf_tpu_torch.codecs.aac.synth import K7
@@ -2667,7 +2868,8 @@ def main() -> int:
     rows += celt_rows
     launches.update(celt_launches)
     phase("18 multi-device", multidevice_phase, dev, tag, kernels)
-    print(f"phases 2-18: {time.perf_counter() - t_all:.1f} s wall")
+    phase("19 opus operating points", opus_modes_phase, dev, tag, kernels)
+    print(f"phases 2-19: {time.perf_counter() - t_all:.1f} s wall")
 
     meta = {
         "k1_imdct_tdac": ("iamf_tpu_torch/csrc/imdct.cu",

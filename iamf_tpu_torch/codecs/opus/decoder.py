@@ -6,9 +6,7 @@ codecs/base.open_decoder), its ``SpectrumMeta`` mirror and the postfilter
 tap gains. The reference's ``OpusDecoder.decode_spectrum_batch`` imports
 the JAX synthesis module for three layout constants; here it is the
 module function ``decode_spectrum_batch``, which takes them from
-codecs/opus/synth.py and covers the one operating point the port
-synthesises: CELT-960, one frame per unit, not hybrid (others:
-ROADMAP.md §1 item 5). The native calls are the same.
+codecs/opus/synth.py; its arguments and native calls are the same.
 
 IAMF opus decoder_conf (big-endian, IAMF spec §"Opus Specific"):
   version(u8) channels(u8) pre_skip(u16) input_sample_rate(u32)
@@ -21,13 +19,14 @@ import concurrent.futures as cf
 import ctypes
 import os
 import subprocess
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
 
 from ...constants import Codec
 from ..base import CodecDecoder, register
-from .synth import FRAME, MINPERIOD, N_PARAMS
+from .synth import MINPERIOD, N_PARAMS, packed_width
 
 _TABLES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -279,6 +278,33 @@ class OpusDecoder(CodecDecoder):
         return out
 
 
+class FreshThreads:
+    """An executor's ``map`` that runs each item on a thread of its own,
+    started for it: a native decode on it starts from zeroed thread-local
+    scratch (decode_spectrum_batch's hybrid case)."""
+
+    def map(self, fn, items):
+        items = list(items)
+        out = [None] * len(items)
+        errs = []
+
+        def run(i):
+            try:
+                out[i] = fn(items[i])
+            except BaseException as e:  # re-raised in the caller
+                errs.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(items))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise errs[0]
+        return out
+
+
 _GAINS = None
 
 
@@ -291,20 +317,26 @@ def _gains_table():
     return _GAINS
 
 
-def decode_spectrum_batch(codec, frames) -> dict:
-    """Entropy-decode a batch of CELT-960 temporal units to spectra
-    (OpusDecoder.decode_spectrum_batch at n=960, k=1, not hybrid).
+def decode_spectrum_batch(codec, frames, n: int = 960, k: int = 1,
+                          hybrid: bool = False) -> dict:
+    """Entropy-decode a batch of temporal units to spectra for the device
+    synthesis (OpusDecoder.decode_spectrum_batch of the reference).
 
-    frames: [B] lists of per-substream packets. Returns a dict whose
-    ``buf`` is the [B, L, 960+13] float32 buffer with the spectra in place
-    (the caller packs the 13 per-frame parameters into columns [960:973]
-    with synth.pack_params), plus the parameter arrays."""
+    frames: [B] lists of per-substream packets; each packet carries k Opus
+    frames of n samples (OpusDecoder.classify_packets). Returns a dict
+    whose ``buf`` is the [B·k, L, packed_width(n, hybrid)] float32 buffer
+    with the spectra (and a hybrid frame's SILK pcm, columns n + 13 on) in
+    place (the caller packs the 13 per-frame parameters into columns
+    [n, n + 13) with synth.pack_params), the parameter arrays,
+    ``postfilter`` and ``min_period`` (the smallest comb period with a
+    nonzero gain)."""
     lib = _load_native()
     gains_tab = _gains_table()
-    R = B = len(frames)
+    B = len(frames)
+    R = B * k
     decoders = codec._decoders
     L = sum(ch for _, ch in decoders)
-    buf = np.zeros((R, L, FRAME + N_PARAMS), np.float32)
+    buf = np.zeros((R, L, packed_width(n, hybrid)), np.float32)
     transient = np.zeros((R, L), bool)
     t_old = np.full((R, L), MINPERIOD, np.int32)
     t_cur = np.full((R, L), MINPERIOD, np.int32)
@@ -326,10 +358,11 @@ def decode_spectrum_batch(codec, frames) -> dict:
         sizes = np.array([len(p) for p in pkts], np.int32)
         metas = (SpectrumMeta * R)()
         fbase = int(buf.ctypes.data + 4 * int(lanes[i]) * W)
-        # k = 1 frame per unit; no SILK base (not hybrid)
+        # a hybrid frame's SILK pcm goes after its 13 parameter columns
+        sbase = fbase + 4 * (n + N_PARAMS) if hybrid else None
         r = lib.iamf_opus_decode_spectrum_batch3(
             ptr, blob, sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-            B, 1, L * W, W, fbase, None, metas)
+            B, k, L * W, W, fbase, sbase, metas)
         if r < 0:
             raise ValueError(
                 f"opus spectrum decode failed ({r}) at batch packet "
@@ -350,7 +383,21 @@ def decode_spectrum_batch(codec, frames) -> dict:
         g_new[:, sl] = (mf[:, c["pf_gain_new"], None]
                         * gains_tab[m[:, c["pf_tapset_new"]]])[:, None, :]
 
-    if len(decoders) > 1 and B > 1:
+    parallel = len(decoders) > 1 and B > 1
+    if hybrid:
+        # The native hybrid band walk folds from scratch it has not written
+        # (it lacks libopus's special_hybrid_folding) and keeps that scratch
+        # per thread, so on a reused thread its output depends on what the
+        # thread decoded before. New threads start it at zero: one a
+        # substream where the reference runs them in parallel, else one for
+        # them all, one after the other, as the reference runs them.
+        if parallel:
+            FreshThreads().map(run_substream, range(len(decoders)))
+        else:
+            FreshThreads().map(
+                lambda _: [run_substream(i) for i in range(len(decoders))],
+                [0])
+    elif parallel:
         # substream codec states are independent: one host thread each
         if getattr(codec, "_pool", None) is None:
             codec._pool = cf.ThreadPoolExecutor(
@@ -359,6 +406,11 @@ def decode_spectrum_batch(codec, frames) -> dict:
     else:
         for i in range(len(decoders)):
             run_substream(i)
+    active = np.concatenate(
+        [np.where(np.any(g != 0, -1), t, 1 << 30).ravel()
+         for t, g in ((t_old, g_old), (t_cur, g_cur), (t_new, g_new))])
+    min_period = int(active.min()) if active.size else 1 << 30
     return dict(buf=buf, transient=transient,
                 t_old=t_old, t_cur=t_cur, t_new=t_new,
-                g_old=g_old, g_cur=g_cur, g_new=g_new)
+                g_old=g_old, g_cur=g_cur, g_new=g_new,
+                postfilter=min_period < (1 << 30), min_period=min_period)

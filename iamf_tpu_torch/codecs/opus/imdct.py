@@ -1,5 +1,6 @@
-"""K1: the CELT-960 synthesis filterbank (IMDCT + TDAC overlap + short-block
-interleave) as folded constant products.
+"""K1: the CELT synthesis filterbank (IMDCT + TDAC overlap + short-block
+interleave) as folded constant products, for frames of n = 120, 240, 480 or
+960 samples.
 
 Counterpart of iamf_tpu/codecs/opus/pallas_imdct.py (the reference's one
 Pallas kernel, ``fused_imdct_overlap``). Every output sample of a frame is
@@ -8,8 +9,10 @@ linear in (spectrum, previous frame's raw 60-sample MDCT tail), so
     y      = freq @ A_mode.T + tail_in @ C_mode.T      (mode = long | short)
     tail'  = freq @ D_mode.T
 
-with A [960, 960], C [960, 60], D [60, 960] built once in float64 and
-rounded to float32 (``fused_mats``). On a CUDA tensor the hand-written
+with A [n, n], C [n, 60], D [60, n] built once per n in float64 and
+rounded to float32 (``fused_mats``). A transient frame has M = n/120 short
+blocks; at n = 120, M = 1 and both modes are the long one (the reference
+ignores the transient flag there). On a CUDA tensor the hand-written
 kernel csrc/imdct.cu runs (design and bound in its source note): one
 split-TF32 tensor-core product per mode with W = [A | D | 0]
 (``product_mats``, columns in ``k_order``, stored split by
@@ -30,14 +33,27 @@ import torch
 from ...kernels.build import I, Kernel, P
 
 FRAME = 960
+FRAMES = (120, 240, 480, 960)  # the CELT frame sizes
 OVER = 60  # TDAC mirror half-overlap (celt overlap 120, mirror mixes 60)
-NOUT = 1024  # K1's product columns: 960 samples, 60 tail, 4 zero
+BK = 32  # K1's k-step: the contraction is padded to a multiple of it
+NOUT = 1024  # K1's product columns at n = 960: 960 samples, 60 tail, 4 zero
+
+
+def nout(n: int) -> int:
+    """K1's product columns for frames of n: n samples, the 60-sample tail,
+    zeros up to the 64-column tile."""
+    return -(-(n + OVER) // 64) * 64
+
+
+def kpad(n: int) -> int:
+    """K1's contraction depth for frames of n: n rounded up to the k-step."""
+    return -(-n // BK) * BK
 
 _TABLES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__)))), "data", "opus_tables.npz")
 
-K1 = Kernel("iamf_k1_imdct", [P, I, P, P, I, I] + [P] * 5 + [P] * 4)
+K1 = Kernel("iamf_k1_imdct", [P, I, I, P, P, I, I] + [P] * 5 + [P] * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,38 +71,43 @@ def _basis64(n2: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def fused_mats():
+def fused_mats(n: int = FRAME):
     """(A_long, A_short, C_long, C_short, D_long, D_short), float32,
-    transposed for ``x @ M`` (contraction dim first): A [960, 960],
-    C [60, 960], D [960, 60]. A copy of pallas_imdct._fused_mats in numpy
-    float64 (bit-equal; tests/test_torch_imdct.py checks it)."""
+    transposed for ``x @ M`` (contraction dim first): A [n, n], C [60, n],
+    D [n, 60]. At n = 960 a copy of pallas_imdct._fused_mats in numpy
+    float64 (bit-equal; tests/test_torch_imdct.py checks it); other n
+    fold tpu_synth._imdct_overlap_jnp's M = n/120 short blocks the same
+    way."""
+    if n not in FRAMES:
+        raise ValueError(f"CELT frames are {FRAMES} samples, not {n}")
+    M = n // 120
     w = np.asarray(window120(), np.float64)
-    bl = _basis64(FRAME)   # [m, k] long raw IMDCT
+    bl = _basis64(n)   # [m, k] long raw IMDCT
     b120 = _basis64(120)
-    # combined short basis: block j holds freq[j::8] (stride-8 interleave)
-    bs = np.zeros((FRAME, FRAME), np.float64)
-    for j in range(8):
-        bs[j * 120:(j + 1) * 120, j::8] = b120
+    # combined short basis: block j holds freq[j::M] (stride-M interleave)
+    bs = np.zeros((n, n), np.float64)
+    for j in range(M):
+        bs[j * 120:(j + 1) * 120, j::M] = b120
 
     i = np.arange(OVER)
     wl = w[119 - i]  # mirror window, left half
     wr = w[i]
 
-    a_l = np.zeros((FRAME, FRAME), np.float64)
-    c_l = np.zeros((FRAME, OVER), np.float64)
+    a_l = np.zeros((n, n), np.float64)
+    c_l = np.zeros((n, OVER), np.float64)
     # y[i]    = wl[i]*tail[i]        - wr[i]*t[59-i]
     a_l[i] = -wr[:, None] * bl[59 - i]
     c_l[i, i] = wl
     # y[60+i] = wl[59-i]*t[i]        + wr[59-i]*tail[59-i]
     a_l[60 + i] = wl[59 - i][:, None] * bl[i]
     c_l[60 + i, 59 - i] = wr[59 - i]
-    # y[120:] = t[60:900]
-    a_l[120 + np.arange(840)] = bl[60:900]
-    d_l = bl[900:960]
+    # y[120:] = t[60:n-60]
+    a_l[120 + np.arange(n - 120)] = bl[60:n - 60]
+    d_l = bl[n - 60:n]
 
-    a_s = np.zeros((FRAME, FRAME), np.float64)
-    c_s = np.zeros((FRAME, OVER), np.float64)
-    for j in range(8):
+    a_s = np.zeros((n, n), np.float64)
+    c_s = np.zeros((n, OVER), np.float64)
+    for j in range(M):
         pj = bs[(j - 1) * 120 + 60:(j - 1) * 120 + 120] if j else None
         r0 = j * 120 + i
         a_s[r0] = -wr[:, None] * bs[j * 120 + 59 - i]
@@ -100,7 +121,7 @@ def fused_mats():
             a_s[r1] += wr[59 - i][:, None] * pj[59 - i]
         else:
             c_s[r1, 59 - i] = wr[59 - i]
-    d_s = bs[7 * 120 + 60:7 * 120 + 120]
+    d_s = bs[(M - 1) * 120 + 60:M * 120]
 
     def t32(m):
         return np.ascontiguousarray(m.T).astype(np.float32)
@@ -120,17 +141,21 @@ def k_order(k: int = FRAME) -> np.ndarray:
     return (np.arange(0, k, 32)[:, None] + p).reshape(-1)
 
 
-def product_mats():
-    """K1's product matrices (W_long, W_short), float32 [1024, 960]:
-    W = [A | D | 0], rows 0..959 the output samples, 960..1019 the new raw
-    tail, 4 zero rows; K-major as TF32 wgmma takes its B operand, columns
-    in ``k_order()``."""
-    atl, ats, _, _, dtl, dts = fused_mats()
-    pad = np.zeros((NOUT - FRAME - OVER, FRAME), np.float32)
-    order = k_order()
-    return tuple(
-        np.ascontiguousarray(np.concatenate([a.T, d.T, pad])[:, order])
-        for a, d in ((atl, dtl), (ats, dts)))
+def product_mats(n: int = FRAME):
+    """K1's product matrices (W_long, W_short) for frames of n, float32
+    [nout(n), kpad(n)]: W = [A | D | 0], rows 0..n-1 the output samples,
+    n..n+59 the new raw tail, zero rows up to nout(n); K-major as TF32
+    wgmma takes its B operand, zero columns from n to kpad(n), columns in
+    ``k_order(kpad(n))``."""
+    atl, ats, _, _, dtl, dts = fused_mats(n)
+    order = k_order(kpad(n))
+    out = []
+    for a, d in ((atl, dtl), (ats, dts)):
+        w = np.zeros((nout(n), kpad(n)), np.float32)
+        w[:n, :n] = a.T
+        w[n:n + OVER, :n] = d.T
+        out.append(np.ascontiguousarray(w[:, order]))
+    return tuple(out)
 
 
 def split_tf32(x: np.ndarray):
@@ -147,21 +172,23 @@ def split_tf32(x: np.ndarray):
 
 
 @functools.lru_cache(maxsize=None)
-def _split_product_mats():
-    return tuple(split_tf32(w) for w in product_mats())
+def _split_product_mats(n: int):
+    return tuple(split_tf32(w) for w in product_mats(n))
 
 
 class FusedMats(torch.nn.Module):
-    """The folded constants as buffers, moved with ``.to(device)``: the six
-    matrices of the plain twin (atl .. dts), K1's product matrices split in
-    TF32 (w_long_hi, w_long_lo, w_short_hi, w_short_lo) and the window."""
+    """The folded constants of frames of n as buffers, moved with
+    ``.to(device)``: the six matrices of the plain twin (atl .. dts), K1's
+    product matrices split in TF32 (w_long_hi, w_long_lo, w_short_hi,
+    w_short_lo) and the window."""
 
-    def __init__(self):
+    def __init__(self, n: int = FRAME):
         super().__init__()
+        self.n = n
         for name, m in zip(("atl", "ats", "ctl", "cts", "dtl", "dts"),
-                           fused_mats()):
+                           fused_mats(n)):
             self.register_buffer(name, torch.from_numpy(m.copy()))
-        for mode, (hi, lo) in zip(("long", "short"), _split_product_mats()):
+        for mode, (hi, lo) in zip(("long", "short"), _split_product_mats(n)):
             self.register_buffer(f"w_{mode}_hi", torch.from_numpy(hi.copy()))
             self.register_buffer(f"w_{mode}_lo", torch.from_numpy(lo.copy()))
         self.register_buffer("window", torch.from_numpy(window120().copy()))
@@ -185,12 +212,14 @@ def imdct_overlap_plain(mats: FusedMats, freq, transient, tail0):
 
 
 def imdct_overlap_cuda(mats: FusedMats, freq, transient, tail0):
-    """K1 on the card. freq [B, L, 960] may be a view into the packed
-    [B, L, 973] buffer (unit last stride, rows ld apart)."""
+    """K1 on the card. freq [B, L, n] (n = mats.n) may be a view into the
+    packed [B, L, n + 13] or [B, L, 2n + 13] buffer (unit last stride, rows
+    ld apart)."""
     B, L, n = freq.shape
-    if n != FRAME or tail0.shape != (L, OVER) or transient.shape != (B, L):
+    if (n != mats.n or tail0.shape != (L, OVER)
+            or transient.shape != (B, L)):
         raise ValueError(
-            f"K1 takes freq [B, L, {FRAME}], transient [B, L], tail0 "
+            f"K1 takes freq [B, L, {mats.n}], transient [B, L], tail0 "
             f"[L, {OVER}]; got {list(freq.shape)}, {list(transient.shape)}, "
             f"{list(tail0.shape)}")
     if freq.dtype != torch.float32 or tail0.dtype != torch.float32:
@@ -198,23 +227,23 @@ def imdct_overlap_cuda(mats: FusedMats, freq, transient, tail0):
     ld = freq.stride(1)
     if freq.stride(2) != 1 or freq.stride(0) != L * ld:
         freq = freq.contiguous()
-        ld = FRAME
+        ld = n
     trans = transient.to(torch.uint8).contiguous()
     tail0 = tail0.contiguous()
     dev = freq.device
     R = B * L
-    y = torch.empty((B, L, FRAME), dtype=torch.float32, device=dev)
+    y = torch.empty((B, L, n), dtype=torch.float32, device=dev)
     tails = torch.empty((R, OVER), dtype=torch.float32, device=dev)
     lists = torch.empty((2 * R,), dtype=torch.int32, device=dev)
     counts = torch.empty((2,), dtype=torch.int32, device=dev)
-    K1(freq, ld, trans, tail0, B, L, mats.w_long_hi, mats.w_long_lo,
+    K1(freq, ld, n, trans, tail0, B, L, mats.w_long_hi, mats.w_long_lo,
        mats.w_short_hi, mats.w_short_lo, mats.window, y, tails, lists, counts)
     return y, tails[(B - 1) * L:]
 
 
 def imdct_overlap(mats: FusedMats, freq, transient, tail0):
-    """(y [B, L, 960], tail [L, 60]) from spectra freq [B, L, 960],
-    transient [B, L] bool and the previous batch's tail0 [L, 60].
+    """(y [B, L, n], tail [L, 60]) from spectra freq [B, L, n] (n =
+    mats.n), transient [B, L] bool and the previous batch's tail0 [L, 60].
     CUDA tensors run K1; CPU tensors run the plain twin."""
     if freq.is_cuda:
         return imdct_overlap_cuda(mats, freq, transient, tail0)

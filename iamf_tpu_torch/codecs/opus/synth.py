@@ -2,13 +2,16 @@
 
 Counterpart of iamf_tpu/codecs/opus/tpu_synth.py. The host native decoder
 exports denormalised spectra plus 13 per-frame parameters in one packed
-buffer [B, L, 973] (``pack_params``); this module turns a batch of them
-into s16-granular PCM [B, L, 960]:
+buffer [B, L, n + 13] (``pack_params``; frames of n = 120, 240, 480 or 960
+samples), a hybrid frame's host-decoded SILK pcm in n more columns
+[B, L, 2n + 13]; this module turns a batch of them into s16-granular PCM
+[B, L, n]:
 
 - IMDCT + TDAC overlap: K1 (codecs/opus/imdct.py, csrc/imdct.cu);
-- comb post-filter + de-emphasis + s16 rounding: K2 (csrc/comb_deemph.cu),
-  two launches: the comb per lane on the schedule of ``comb_chunks``, then
-  the de-emphasis per (frame, lane).
+- comb post-filter + de-emphasis (+ the SILK pcm) + s16 rounding: K2
+  (csrc/comb_deemph.cu), two launches: the comb per lane on the schedule of
+  ``comb_chunks``, then the de-emphasis per 960-sample block of each lane's
+  timeline, as the reference blocks it.
 
 CUDA tensors run the kernels; CPU tensors run the plain twins below, which
 follow the reference's own formulation (chunked comb, blocked
@@ -16,9 +19,8 @@ lower-triangular de-emphasis). K2's comb is bit-exact with the twin's; its
 scanned de-emphasis and the blocked one differ by at most 1 s16 LSB
 (tests/k2_model.py models K2's order on the CPU).
 
-Only the CELT-960, one-frame-per-unit, non-hybrid operating point is
-ported; frames of 120/240/480, k > 1 and hybrid raise NotImplementedError
-(ROADMAP.md §1 item 5).
+The frame size and the hybrid flag are passed, never read from the width:
+CELT-960 and hybrid-480 rows are both 973 wide.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from ...kernels.build import I, Kernel, P
-from .imdct import FRAME, FusedMats, imdct_overlap, window120
+from .imdct import FRAME, FRAMES, FusedMats, imdct_overlap, window120
 
 HIST = 1032  # > COMBFILTER_MAXPERIOD (1024) + 2, comb look-back window
 MINPERIOD = 15
@@ -46,7 +48,14 @@ PK_G_OLD = 4   # 3 columns
 PK_G_CUR = 7   # 3 columns
 PK_G_NEW = 10  # 3 columns
 
-K2 = Kernel("iamf_k2_comb_deemph", [P, P, I, P, P, P, I, I, P, P, P, P])
+K2 = Kernel("iamf_k2_comb_deemph",
+            [P, P, I, P, P, P, I, I, I, I, P, P, P, P])
+
+
+def packed_width(n: int, hybrid: bool) -> int:
+    """A packed row's width for frames of n: the spectrum, the 13
+    parameters, and a hybrid frame's n SILK samples."""
+    return n + N_PARAMS + (n if hybrid else 0)
 
 
 def pack_params(d: dict) -> np.ndarray:
@@ -65,14 +74,16 @@ def pack_params(d: dict) -> np.ndarray:
     return out
 
 
-def neutral_rows(shape: tuple) -> np.ndarray:
-    """Packed rows [*shape, 973] that synthesize silence: zero spectra and
-    gains, legal comb periods (MINPERIOD) so the comb never reads before
-    its history. The batch and flush padding, and the sharded decoders'
-    rows past the stream's ends and padded lanes."""
-    z = np.zeros(tuple(shape) + (FRAME + N_PARAMS,), np.float32)
+def neutral_rows(shape: tuple, n: int = FRAME,
+                 hybrid: bool = False) -> np.ndarray:
+    """Packed rows [*shape, packed_width(n, hybrid)] that synthesize
+    silence: zero spectra, gains and SILK pcm, legal comb periods
+    (MINPERIOD) so the comb never reads before its history. The batch and
+    flush padding, and the sharded decoders' rows past the stream's ends
+    and padded lanes."""
+    z = np.zeros(tuple(shape) + (packed_width(n, hybrid),), np.float32)
     for col in (PK_T_OLD, PK_T_CUR, PK_T_NEW):
-        z[..., FRAME + col] = MINPERIOD
+        z[..., n + col] = MINPERIOD
     return z
 
 
@@ -119,21 +130,22 @@ def unpack(buf: torch.Tensor, n: int) -> SynthParams:
 
 
 class CeltSynth(torch.nn.Module):
-    """Constant tables of the CELT-960 synthesis: the folded IMDCT
-    matrices (K1) and the 120-tap overlap window (comb crossfade)."""
+    """Constant tables of the CELT synthesis of frames of n: the folded
+    IMDCT matrices (K1) and the 120-tap overlap window (comb crossfade)."""
 
-    def __init__(self):
+    def __init__(self, n: int = FRAME):
         super().__init__()
-        self.mats = FusedMats()
+        self.n = n
+        self.mats = FusedMats(n)
         self.register_buffer("window", torch.from_numpy(window120().copy()))
 
 
 @functools.lru_cache(maxsize=None)
-def celt_synth(device: torch.device) -> CeltSynth:
-    """The CELT-960 constants on `device`, built and uploaded once: they are
-    read-only, so every decoder on the device shares them (23 MB with K1's
-    split-TF32 matrices)."""
-    return CeltSynth().to(device)
+def celt_synth(device: torch.device, n: int = FRAME) -> CeltSynth:
+    """The constants of frames of n on `device`, built and uploaded once:
+    they are read-only, so every decoder on the device shares them (23 MB
+    at n = 960 with K1's split-TF32 matrices)."""
+    return CeltSynth(n).to(device)
 
 
 # --- plain twin of K2 -------------------------------------------------------
@@ -223,33 +235,37 @@ def _deemph_mats(K: int):
 def deemphasis(z, m0):
     """out[j] = z[j] + 1e-30 + m[j-1]; m[j] = 0.85*out[j], evaluated as the
     reference does (tpu_synth._deemphasis): a blocked lower-triangular
-    matmul over 960-sample blocks, where 0.85^960 underflows to 0 so block
-    memories chain by a shift. z: [L, N], N a multiple of 960."""
+    matmul over blocks of K = 960 samples of each lane's timeline z [L, N]
+    (the last block padded), where 0.85^960 underflows to 0 so block
+    memories chain by a shift; a call of N < 960 samples is one block of
+    K = N entered with m0. Returns (out, the memory at the true last
+    sample)."""
     L, N = z.shape
-    K = 960
-    if N % K:
-        raise NotImplementedError(
-            "de-emphasis for frames other than 960 samples: ROADMAP.md §1 "
-            "item 5")
-    PT, pw_shift, aK = _deemph_mats(K)  # aK == 0: block memories shift
+    K = 960 if N % 960 == 0 else min(N, 960)
+    PT, pw_shift, _ = _deemph_mats(K)
     b = 0.85 * (z + 1e-30)
-    nb = N // K
+    nb = -(-N // K)
+    if nb * K != N:
+        b = torch.nn.functional.pad(b, (0, nb * K - N))
     u = b.reshape(L, nb, K) @ torch.from_numpy(PT).to(z.device)
-    u_last = u[:, :, K - 1]
-    e = torch.cat([m0[:, None], u_last[:, :-1]], dim=1)
+    # block entry memories: m0, then each block's zero-entry end memory
+    # (exact: a block of 960 forgets its entry; a shorter one is alone)
+    e = torch.cat([m0[:, None], u[:, :-1, K - 1]], dim=1)
     u_shift = torch.cat(
         [torch.zeros((L, nb, 1), dtype=z.dtype, device=z.device),
          u[:, :, :-1]], dim=2)
     m_prev = u_shift + torch.from_numpy(pw_shift).to(z.device)[None, None] \
         * e[:, :, None]
-    out = (z + 1e-30) + m_prev.reshape(L, N)
-    demem = u[:, nb - 1, K - 1] + aK * e[:, nb - 1]
+    out = (z + 1e-30) + m_prev.reshape(L, nb * K)[:, :N]
+    i0, k0 = (N - 1) // K, (N - 1) % K
+    demem = u[:, i0, k0] + float(np.float32(0.85 ** (k0 + 1))) * e[:, i0]
     return out, demem
 
 
-def comb_deemph_plain(window, y, pk_buf, hist, demem):
-    """Plain twin of K2: y [B, L, 960] IMDCT output, pk_buf the packed
-    buffer [B, L, 973] -> (pcm [B, L, 960], hist', demem')."""
+def comb_deemph_plain(window, y, pk_buf, hist, demem, hybrid=False):
+    """Plain twin of K2: y [B, L, n] IMDCT output, pk_buf the packed
+    buffer [B, L, n + 13] (hybrid: [B, L, 2n + 13], the SILK pcm added
+    after the de-emphasis) -> (pcm [B, L, n], hist', demem')."""
     K2.note_plain(y)
     B, L, n = y.shape
     p = unpack(pk_buf, n)
@@ -263,23 +279,30 @@ def comb_deemph_plain(window, y, pk_buf, hist, demem):
     hist2 = z[:, -HIST:] if B * n >= HIST else torch.cat(
         [hist, z], dim=1)[:, -HIST:]
     out, demem2 = deemphasis(z, demem)
+    if hybrid:
+        # opus_decoder.c "pcm[i] += pcm_silk[i]", at s16 value scale
+        out = out + flat(pk_buf[..., n + N_PARAMS:2 * n + N_PARAMS])
     s16 = torch.round(torch.clamp(out, -32768.0, 32767.0))
     pcm = (s16 * (1.0 / 32768.0)).reshape(L, B, n).transpose(0, 1)
     return pcm.contiguous(), hist2.contiguous(), demem2
 
 
-# K2 phase A's schedule: the segments of a frame with one comb lag set each
-SEGMENTS = ((0, 120), (120, 240), (240, FRAME))
+def segments(n: int = FRAME) -> tuple:
+    """K2 phase A's schedule: the segments of a frame of n with one comb
+    lag set each, [0,120), [120, min(240, n)), [min(240, n), n); at n = 120
+    the last two are empty (the reference runs its first pass only)."""
+    m = min(240, n)
+    return ((0, 120), (120, m), (m, n))
 
 
-def comb_chunks(pk: np.ndarray) -> np.ndarray:
+def comb_chunks(pk: np.ndarray, n: int = FRAME) -> np.ndarray:
     """K2 phase A's per-segment schedule: the chunk of each segment
-    ([0,120), [120,240), [240,960)) of each frame, [..., 3], from the
-    packed parameters pk [..., 13]. A segment reads t_old and t_cur (t_cur
-    alone when the sets are equal), t_cur and t_new (t_new alone), then
-    t_new; its chunk is the smallest of those lags whose gain triple is
-    nonzero, less 2, so every read with a nonzero coefficient lands on a
-    finished output. A segment whose gains are all zero is one step."""
+    (``segments(n)``) of each frame, [..., 3], from the packed parameters
+    pk [..., 13]. A segment reads t_old and t_cur (t_cur alone when the
+    sets are equal), t_cur and t_new (t_new alone), then t_new; its chunk
+    is the smallest of those lags whose gain triple is nonzero, less 2, so
+    every read with a nonzero coefficient lands on a finished output. A
+    segment whose gains are all zero is one step (an empty one none)."""
     t = pk[..., PK_T_OLD:PK_T_NEW + 1].astype(np.int64)
     g = [pk[..., c:c + 3] for c in (PK_G_OLD, PK_G_CUR, PK_G_NEW)]
     none = np.int64(1 << 30)
@@ -290,28 +313,32 @@ def comb_chunks(pk: np.ndarray) -> np.ndarray:
     least = (np.where(eq_oc, lag[1], np.minimum(lag[0], lag[1])),
              np.where(eq_cn, lag[2], np.minimum(lag[1], lag[2])),
              lag[2])
-    return np.stack([np.where(m == none, s1 - s0, np.maximum(m - 2, 1))
-                     for m, (s0, s1) in zip(least, SEGMENTS)], axis=-1)
+    return np.stack([np.where(m == none, max(s1 - s0, 1),
+                              np.maximum(m - 2, 1))
+                     for m, (s0, s1) in zip(least, segments(n))], axis=-1)
 
 
-def comb_steps(pk: np.ndarray) -> np.ndarray:
+def comb_steps(pk: np.ndarray, n: int = FRAME) -> np.ndarray:
     """Phase A's steps per lane (its dependent chain) for pk [B, L, 13]."""
-    lens = np.array([s1 - s0 for s0, s1 in SEGMENTS])
-    return (-(-lens // comb_chunks(pk))).sum(axis=(0, 2))
+    lens = np.array([s1 - s0 for s0, s1 in segments(n)])
+    return (-(-lens // comb_chunks(pk, n))).sum(axis=(0, 2))
 
 
-def comb_deemph_cuda(window, y, pk_buf, hist, demem, scratch=None):
-    """K2 on the card; pk_buf is the packed [B, L, 973] buffer, read in
-    place (parameter columns from 960 on). scratch: float32 [L·B·960 + L]
-    (allocated when None): phase A's comb output z, [L, B·960], then its
-    step count per lane (int32), read back by the tests and the smoke."""
+def comb_deemph_cuda(window, y, pk_buf, hist, demem, scratch=None,
+                     hybrid=False):
+    """K2 on the card; y [B, L, n], pk_buf the packed [B, L, n + 13] (or
+    hybrid [B, L, 2n + 13]) buffer, read in place (parameter columns from
+    n on, SILK from n + 13). scratch: float32 [L·B·n + L] (allocated when
+    None): phase A's comb output z, [L, B·n], then its step count per
+    lane (int32), read back by the tests and the smoke."""
     B, L, n = y.shape
-    if (n != FRAME or pk_buf.shape[:2] != (B, L)
-            or pk_buf.shape[2] < n + N_PARAMS or hist.shape != (L, HIST)
+    width = packed_width(n, hybrid)
+    if (n not in FRAMES or pk_buf.shape[:2] != (B, L)
+            or pk_buf.shape[2] < width or hist.shape != (L, HIST)
             or demem.shape != (L,) or window.shape != (120,)):
         raise ValueError(
-            f"K2 takes y [B, L, {FRAME}], pk_buf [B, L, >= {FRAME + N_PARAMS}]"
-            f", hist [L, {HIST}], demem [L], window [120]; got "
+            f"K2 takes y [B, L, n] (n in {FRAMES}), pk_buf [B, L, >= "
+            f"{width}], hist [L, {HIST}], demem [L], window [120]; got "
             f"{[list(t.shape) for t in (y, pk_buf, hist, demem, window)]}")
     if any(t.dtype != torch.float32 for t in (y, pk_buf, hist, demem, window)):
         raise TypeError("K2 takes float32 tensors")
@@ -335,49 +362,51 @@ def comb_deemph_cuda(window, y, pk_buf, hist, demem, scratch=None):
     pcm = torch.empty_like(y)
     hist2 = torch.empty_like(hist)
     demem2 = torch.empty_like(demem)
-    K2(y, pk, ld, hist, demem, window, B, L, scratch, pcm, hist2, demem2)
+    K2(y, pk, ld, hist, demem, window, B, L, n, int(hybrid), scratch, pcm,
+       hist2, demem2)
     return pcm, hist2, demem2
 
 
-def comb_deemph(window, y, pk_buf, hist, demem):
-    """Comb post-filter + de-emphasis + s16 rounding. CUDA tensors run K2;
-    CPU tensors run the plain twin."""
+def comb_deemph(window, y, pk_buf, hist, demem, hybrid=False):
+    """Comb post-filter + de-emphasis (+ a hybrid frame's SILK pcm) + s16
+    rounding. CUDA tensors run K2; CPU tensors run the plain twin."""
     if y.is_cuda:
-        return comb_deemph_cuda(window, y, pk_buf, hist, demem)
-    return comb_deemph_plain(window, y, pk_buf, hist, demem)
+        return comb_deemph_cuda(window, y, pk_buf, hist, demem, hybrid=hybrid)
+    return comb_deemph_plain(window, y, pk_buf, hist, demem, hybrid)
 
 
 def shard_stages(synth: CeltSynth, buf, preroll: int):
     """The shard-parallel half of the synthesis (parallel/sharded_decoder.py;
     tpu_synth.shard_stages): K1 over a shard's preroll + F frames of the
-    packed buffer [preroll + F, L, 973] from a zero TDAC tail, the preroll
-    rows dropped. The TDAC mirror mixes a block's first 60 samples with the
-    previous block's raw tail only, so one preroll frame makes every kept
-    frame exact. Returns y [F, L, 960]; the comb + de-emphasis IIRs carry
-    state over the whole timeline and run as a chain over the shards
-    (comb_deemph with the packed rows buf[preroll:] and an explicit
-    (hist, demem) carry)."""
-    n = buf.shape[-1] - N_PARAMS
-    if n != FRAME:
-        raise NotImplementedError(
-            f"Opus synthesis for n={n}: only CELT-960 non-hybrid is "
-            "ported (ROADMAP.md §1 item 5)")
+    packed buffer [preroll + F, L, n + 13] (n = synth.n) from a zero TDAC
+    tail, the preroll rows dropped. The TDAC mirror mixes a block's first
+    60 samples with the previous block's raw tail only, so one preroll
+    frame makes every kept frame exact. Returns y [F, L, n]; the comb +
+    de-emphasis IIRs carry state over the whole timeline and run as a chain
+    over the shards (comb_deemph with the packed rows buf[preroll:] and an
+    explicit (hist, demem) carry)."""
+    n = synth.n
     transient = buf[..., n + PK_TRANSIENT] != 0
     tail0 = buf.new_zeros((buf.shape[1], 60))
     y, _ = imdct_overlap(synth.mats, buf[..., :n], transient, tail0)
     return y[preroll:]
 
 
-def synthesize_packed(synth: CeltSynth, buf, carry: SynthCarry):
-    """One batch of CELT-960 synthesis from the packed buffer [B, L, 973].
-    Returns (pcm [B, L, 960] float at s16 granularity, new carry)."""
-    n = buf.shape[-1] - N_PARAMS
-    if n != FRAME:
-        raise NotImplementedError(
-            f"Opus synthesis for n={n}: only CELT-960 non-hybrid is "
-            "ported (ROADMAP.md §1 item 5)")
+def synthesize_packed(synth: CeltSynth, buf, carry: SynthCarry,
+                      n: int | None = None, hybrid: bool = False):
+    """One batch of CELT synthesis from the packed buffer [B, L, n + 13]
+    (hybrid: [B, L, 2n + 13], the SILK pcm added after the de-emphasis).
+    n is the frame size synth was built for (synth.n; passing another
+    raises), never the width's. Returns (pcm [B, L, n] float at s16
+    granularity, new carry)."""
+    if n is None:
+        n = synth.n
+    if n != synth.n or buf.shape[-1] != packed_width(n, hybrid):
+        raise ValueError(
+            f"packed rows of {buf.shape[-1]} for n={n}, hybrid={hybrid}, "
+            f"with constants for n={synth.n}")
     transient = buf[..., n + PK_TRANSIENT] != 0
     y, tail = imdct_overlap(synth.mats, buf[..., :n], transient, carry.tail)
     pcm, hist, demem = comb_deemph(synth.window, y, buf, carry.hist,
-                                   carry.demem)
+                                   carry.demem, hybrid)
     return pcm, SynthCarry(tail=tail, hist=hist, demem=demem)

@@ -8,8 +8,13 @@ AAC substreams are entropy-decoded per batch by the native decoders into
 spectra, prefetched one batch ahead on a worker thread so host entropy
 overlaps the device work. The device half runs per batch:
 
-    kind "opus" (CELT-960, one frame per unit): CELT synthesis
-        (codecs/opus/synth.py: K1 IMDCT+TDAC, K2 comb+de-emphasis+s16)
+    kind "opus" (CELT-960, one frame per unit) and "opus:n:k:h" (CELT
+        frames of n = 120/240/480/960 samples, k frames a temporal unit,
+        h = 1 for hybrid SILK + CELT): CELT synthesis (codecs/opus/synth.py:
+        K1 IMDCT+TDAC, K2 comb+de-emphasis(+SILK)+s16), then k frames
+        regrouped into a unit row
+    SILK-only and mixed-mode Opus: decoded on the host (the native float
+        decoder, OpusDecoder.decode_batch) and fed as kind "raw"
     kind "aac"  (AAC-LC, 1024-sample frames): the synthesis filterbank
         (codecs/aac/synth.py: K7 IMDCT, windows, overlap-add, s16)
     kind "raw"  (PCM and FLAC, unpacked on the host): passthrough
@@ -40,9 +45,8 @@ on the same device. ``from_mp4`` opens IAMF in MP4 or fragmented MP4
 (mp4/iamf_track.py), with an optional seek. ``stats`` names each element's
 decode path.
 
-Not ported yet, and raising NotImplementedError: other Opus operating
-points, SILK and hybrid included (ROADMAP.md §1 item 5), and AAC with
-frames other than 1024 samples.
+AAC with frames other than 1024 samples raises NotImplementedError (the
+device filterbank is AAC-LC's 1024).
 """
 
 from __future__ import annotations
@@ -97,6 +101,8 @@ class _ElemCtx:
     gain: float  # element default mix gain (linear)
     hrtf_bank: object = None  # np.ndarray [2, n_bed, taps] | None: the HRIRs
     #   of a binaural (M2B/H2B) element; render_mat then yields the bed
+    opus_cfg: tuple | None = None  # (Opus frame n, frames a unit k, hybrid)
+    #   of a device-synthesised Opus element (OpusDecoder.classify_packets)
 
     @property
     def lanes(self) -> int:
@@ -134,19 +140,42 @@ def lane_synth(fn, inputs: tuple, carry):
             else type(c0)(*map(torch.stack, zip(*cs))))
 
 
+def opus_kind(cfg: tuple) -> str:
+    """The synthesis kind of an Opus element of opus_cfg (n, k, hybrid):
+    "opus" for CELT-960 with one frame a unit, else "opus:n:k:h"."""
+    n, k, hybrid = cfg
+    return "opus" if cfg == (960, 1, False) else f"opus:{n}:{k}:{int(hybrid)}"
+
+
+def parse_opus_kind(kind: str) -> tuple:
+    """opus_kind's inverse: (n, k, hybrid)."""
+    if kind == "opus":
+        return 960, 1, False
+    _, n, k, h = kind.split(":")
+    return int(n), int(k), bool(int(h))
+
+
 def synthesize_elements(kinds: tuple, synths: dict, syn: list, bufs: list):
     """Each element's codec synthesis for one batch of S streams: synths
-    the constants by kind ("opus": CeltSynth, "aac": aac_synth.Tables);
-    bufs per element [S, B, ...] (an AAC element's (spec, meta)); syn the
-    synthesis carries, a leading stream axis each. Returns (xs, syn'):
-    the decode pipeline's inputs and the next carries."""
+    the constants by kind (an Opus kind's CeltSynth, "aac":
+    aac_synth.Tables); bufs per element [S, B, ...] (an Opus element's
+    [S, B·k, ...] rows, an AAC element's (spec, meta)); syn the synthesis
+    carries, a leading stream axis each. Returns (xs, syn'): the decode
+    pipeline's inputs and the next carries."""
     xs = []
     out = []
     for i, kind in enumerate(kinds):
-        if kind == "opus":
+        if kind.startswith("opus"):
+            n, k, hybrid = parse_opus_kind(kind)
             x, s = lane_synth(
                 functools.partial(opus_synth.synthesize_packed,
-                                  synths["opus"]), (bufs[i],), syn[i])
+                                  synths[kind], n=n, hybrid=hybrid),
+                (bufs[i],), syn[i])
+            if k > 1:
+                # k Opus frames of a temporal unit into one row
+                S, R, L = x.shape[:3]
+                x = x.reshape(S, R // k, k, L, n).transpose(2, 3).reshape(
+                    S, R // k, L, k * n)
         elif kind == "aac":
             x, s = lane_synth(
                 functools.partial(aac_synth.synthesize, synths["aac"]),
@@ -172,11 +201,11 @@ def fused_decode(cfg: PipelineConfig, kinds: tuple, synths: dict,
 
 
 def plan_kinds(dec: "BatchedStreamDecoder") -> tuple:
-    """Each element's synthesis kind ("opus", "aac", "raw"): with the
+    """Each element's synthesis kind (opus_kind, "aac", "raw"): with the
     PipelineConfig, the key of the device step, so also the serving
     bucket's."""
-    return tuple("opus" if e.opus else "aac" if e.aac else "raw"
-                 for e in dec.elems)
+    return tuple(opus_kind(e.opus_cfg) if e.opus else "aac" if e.aac
+                 else "raw" for e in dec.elems)
 
 
 def put_bufs(per_stream: list, device, staging: dict) -> list:
@@ -239,8 +268,11 @@ class _HostPlan:
                     lambda t: t[None],
                     (opus_synth if e.opus else aac_synth).init_carry(
                         e.lanes, dev)))
-            else:
+            elif e.raw_input:
                 self.elem_all_x.append(e.codec.decode_batch_raw(packets, T)[0])
+                syn_carry.append(None)
+            else:  # SILK-only or mixed-mode Opus: the host float decode
+                self.elem_all_x.append(e.codec.decode_batch(packets, T))
                 syn_carry.append(None)
         self.carry = {"pipe": init_carry(dec.cfg, dev), "syn": syn_carry}
         self.kinds = plan_kinds(dec)
@@ -322,7 +354,8 @@ class _HostPlan:
             out = []
             for e, x in zip(self.dec.elems, self.elem_all_x):
                 if e.opus:
-                    z = opus_synth.neutral_rows((B, e.lanes))
+                    n, k, hybrid = e.opus_cfg
+                    z = opus_synth.neutral_rows((B * k, e.lanes), n, hybrid)
                 elif e.aac:
                     z = (np.zeros((B, e.lanes, aac_synth.FRAME), np.float32),
                          np.zeros((B, e.lanes, 3), np.int32))
@@ -447,8 +480,10 @@ class BatchedStreamDecoder:
             self.elems.append(
                 self._open_element(item, econf, sound_system, out_ch))
         self.synths = {}
-        if any(e.opus for e in self.elems):
-            self.synths["opus"] = opus_synth.celt_synth(self.device)
+        for e in self.elems:
+            if e.opus:
+                self.synths[opus_kind(e.opus_cfg)] = opus_synth.celt_synth(
+                    self.device, e.opus_cfg[0])
         if any(e.aac for e in self.elems):
             self.synths["aac"] = aac_synth.Tables().to(self.device)
         out_gain_default = db_to_linear(
@@ -652,26 +687,32 @@ class BatchedStreamDecoder:
         if raw_input:
             input_scale = 1.0 / float(getattr(codec, "scale", 1.0))
         opus = False
+        opus_cfg = None
+        opus_mode = None
         if hasattr(codec, "classify_packets"):
+            # the TOC scan splits the element (every TOC is served, as
+            # opus_multistream2_decoder.c:125-165 serves it): CELT and
+            # hybrid at any frame size and packing -> device synthesis;
+            # SILK-only and mixed-mode -> the host float decode feeding the
+            # device pipeline
             pkts = [self.frames_per_substream.get(sid) or []
                     for sid in el.substream_ids]
             opus_mode, n_f, k_f = codec.classify_packets(
                 pkts, self.frame_size)
-            if (opus_mode, n_f, k_f) != ("celt", 960, 1):
-                raise NotImplementedError(
-                    f"Opus {opus_mode} n={n_f} k={k_f}: only CELT-960 with "
-                    "one frame per unit is ported (ROADMAP.md §1 item 5)")
-            opus = True
-        aac = not opus and hasattr(codec, "decode_spectrum_batch")
+            if opus_mode in ("celt", "hybrid"):
+                opus = True
+                opus_cfg = (n_f, k_f, opus_mode == "hybrid")
+        aac = not opus_mode and hasattr(codec, "decode_spectrum_batch")
         if aac and self.frame_size != aac_synth.FRAME:
             raise NotImplementedError(
                 f"AAC with {self.frame_size}-sample frames: only 1024-sample "
                 "AAC-LC frames are ported (the device filterbank)")
         self.stats["elements"].append({
             "element_id": el.element_id,
-            "path": ("opus_device_celt" if opus else "aac_device" if aac
-                     else "raw_device"),
-            **({"opus_cfg": (opus_synth.FRAME, 1, False)} if opus else {}),
+            "path": (f"opus_device_{opus_mode}" if opus else
+                     "opus_host_pipeline" if opus_mode == "host" else
+                     "aac_device" if aac else "raw_device"),
+            **({"opus_cfg": opus_cfg} if opus_cfg else {}),
         })
         return _ElemCtx(
             stream=stream, codec=codec,
@@ -679,6 +720,7 @@ class BatchedStreamDecoder:
             demix_spec=demix_spec, render_mat=render_mat, downmix=downmix,
             n_in=n_in, input_scale=input_scale, raw_input=raw_input,
             opus=opus, aac=aac, gain=gain, hrtf_bank=hrtf_bank,
+            opus_cfg=opus_cfg,
         )
 
     @property
@@ -690,16 +732,18 @@ class BatchedStreamDecoder:
 
     def _opus_entropy(self, e: _ElemCtx, packets, start, count, B):
         """Host entropy decode of one Opus batch -> the packed buffer
-        [B, L, 973] = spectra ++ 13 per-frame parameters."""
-        blk = [[p[k] for p in packets] for k in range(start, start + count)]
-        d = decode_spectrum_batch(e.codec, blk)
-        n = opus_synth.FRAME
+        [B·k, L, packed_width(n, hybrid)] = spectra ++ 13 per-frame
+        parameters (++ a hybrid frame's SILK pcm), padded with k·(B - count)
+        neutral rows."""
+        n, k, hybrid = e.opus_cfg
+        blk = [[p[u] for p in packets] for u in range(start, start + count)]
+        d = decode_spectrum_batch(e.codec, blk, n=n, k=k, hybrid=hybrid)
         buf = d["buf"]
         buf[..., n:n + opus_synth.N_PARAMS] = opus_synth.pack_params(d)
         pad = B - count
         if pad:
             buf = np.concatenate([buf, opus_synth.neutral_rows(
-                (pad,) + buf.shape[1:-1])])
+                (pad * k,) + buf.shape[1:-1], n, hybrid)])
         return buf
 
     def _aac_entropy(self, e: _ElemCtx, packets, start, count, B):

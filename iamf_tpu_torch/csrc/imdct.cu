@@ -1,5 +1,6 @@
-// K1: CELT-960 IMDCT + TDAC overlap as one split-TF32 tensor-core product
-// per mode, plus a 120-sample overlap epilogue.
+// K1: CELT IMDCT + TDAC overlap as one split-TF32 tensor-core product per
+// mode, plus a 120-sample overlap epilogue, for frames of N = 120, 240, 480
+// or 960 samples (a template instantiated four times).
 //
 // Replaces the one Pallas kernel of the reference,
 // iamf_tpu/codecs/opus/pallas_imdct.py fused_imdct_overlap / _kernel
@@ -11,9 +12,13 @@
 // 0..119: y[j] += w[119-j] * tail_in[j < 60 ? j : 119-j].
 //
 // Design for Hopper:
-// - One product per mode over K = 960: W_mode = [A_mode | D_mode | 0]
-//   (1024 x 960, built on the host in codecs/opus/imdct.py), so each row's
-//   960 output samples and its 60-sample new tail come out of one product.
+// - One product per mode over K = N: W_mode = [A_mode | D_mode | 0]
+//   (NOUT x KP, built on the host in codecs/opus/imdct.py: NOUT = N + 60
+//   rounded up to the 64-column tile, KP = N rounded up to the 32-deep
+//   k-step with zero columns, whose spectra the kernel loads as zeros), so
+//   each row's N output samples and its 60-sample new tail come out of one
+//   product. A transient frame's M = N/120 short blocks are folded into
+//   W_short; at N = 120 both modes are the long one.
 //   Once every tail exists, the C term is a separate elementwise epilogue
 //   (k1_overlap); no frame chain remains and all B*L rows are independent.
 // - Rows are split by mode into two index lists (atomic slots). A row's
@@ -34,7 +39,8 @@
 // - W tiles arrive by TMA (128-byte swizzle, box 32 k x 64 n) into a ring
 //   of STAGES buffers behind mbarriers, fed by one producer thread.
 // - The spectra cannot take TMA or 16-byte cp.async: the packed rows are
-//   973 floats (3892 B) apart, not 16-byte aligned, and they are gathered
+//   N + 13 (hybrid 2N + 13) floats apart, not 16-byte aligned, and they
+//   are gathered
 //   through the mode lists. So each consumer warpgroup loads them with
 //   coalesced 4-byte loads two k-steps ahead, stores them as fp32 into a
 //   double-buffered tile, and reads back its own wgmma A fragments, which
@@ -53,7 +59,9 @@
 // and the partial's promotion) runs at ~40 % of the tensor rate, with one
 // block per SM (registers) and 1.6 waves of blocks. At B = 8 (96 rows) only
 // 2 row tiles exist; the 64-wide N tile gives 32 blocks instead of 16 (a
-// 128-wide tile was slower at B = 8; PERF.md has the variants).
+// 128-wide tile was slower at B = 8; PERF.md has the variants). Shorter
+// frames have fewer k-steps and column tiles (N = 480: 15 x 9, 240: 8 x 5,
+// 120: 4 x 3) and proportionally more rows for the same samples.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -64,15 +72,20 @@
 
 namespace {
 
-constexpr int N = 960;           // spectrum length = samples per frame
 constexpr int OVER = 60;         // raw tail length
-constexpr int NOUT = 1024;       // product columns: 960 y, 60 tail, 4 pad
 constexpr int BM = 64;           // rows per consumer warpgroup (wgmma M)
 constexpr int WGS = 2;           // consumer warpgroups per block
 constexpr int BN = 64;           // product columns per block (wgmma N)
 constexpr int BK = 32;           // k per step: one 128-byte swizzle row
-constexpr int KSTEPS = N / BK;   // 30
 constexpr int STAGES = 4;        // W ring depth
+
+// the product's shape for frames of N samples
+template <int N>
+struct Dims {
+  static constexpr int KSTEPS = (N + BK - 1) / BK;  // 30 at N = 960
+  static constexpr int KP = KSTEPS * BK;             // W's columns
+  static constexpr int NOUT = (N + OVER + BN - 1) / BN * BN;  // W's rows
+};
 constexpr int THREADS = WGS * 128 + 32;  // consumers + one producer warp
 constexpr int ROWS = WGS * BM;           // rows per block
 
@@ -84,7 +97,6 @@ constexpr int OFF_B = 0;                            // [STAGES][hi, lo]
 constexpr int OFF_A = OFF_B + STAGES * 2 * B_TILE;  // [WGS][2 buffers]
 constexpr int OFF_BAR = OFF_A + WGS * 2 * A_TILE;   // full, empty
 constexpr int OFF_ROWS = OFF_BAR + 2 * STAGES * 8;  // int[ROWS]
-constexpr int SMEM_BYTES = OFF_ROWS + ROWS * 4 + 1024;
 
 // Store 16 spectrum values per thread (rows 16w..16w+15 of the tile, lane
 // = k) into an fp32 A tile and sync the warpgroup on barrier bar.
@@ -105,8 +117,16 @@ __global__ void partition_rows(const uint8_t* __restrict__ trans, int R,
   lists[m * R + slot] = r;
 }
 
+// spectrum k of a row (offset roff), zero past the frame (W's pad columns)
+template <int N>
+__device__ __forceinline__ float spec(const float* src, int roff, int k) {
+  if (N % BK == 0) return __ldg(src + roff + k);
+  return k < N ? __ldg(src + roff + k) : 0.f;
+}
+
 // out[r, n] = sum_k freq[r, k] W_mode[n, k] for the block's 128 rows of one
-// mode's list and 64 columns n; columns < 960 go to y, 960..1019 to tails.
+// mode's list and 64 columns n; columns < N go to y, N..N+59 to tails.
+template <int N>
 __global__ void __launch_bounds__(THREADS, 1)
 k1_product(const __grid_constant__ CUtensorMap w_long_hi,
            const __grid_constant__ CUtensorMap w_long_lo,
@@ -115,6 +135,7 @@ k1_product(const __grid_constant__ CUtensorMap w_long_hi,
            const float* __restrict__ freq, int ld, int R,
            const int* __restrict__ lists, const int* __restrict__ counts,
            float* __restrict__ y, float* __restrict__ tails) {
+  constexpr int KSTEPS = Dims<N>::KSTEPS;
   const int mode = blockIdx.z;
   const int cnt = counts[mode];
   const int m0 = blockIdx.x * ROWS;
@@ -165,7 +186,7 @@ k1_product(const __grid_constant__ CUtensorMap w_long_hi,
   float* atile = reinterpret_cast<float*>(smem + OFF_A + wg * 2 * A_TILE);
 
   // staging: warp w loads rows 16w..16w+15, lane = k within the step
-  const float* src = freq + lane;
+  const float* src = freq;
   int roff[16];  // element offset of each row
 #pragma unroll
   for (int j = 0; j < 16; ++j) roff[j] = wrows[warp * 16 + j] * ld;
@@ -173,10 +194,12 @@ k1_product(const __grid_constant__ CUtensorMap w_long_hi,
   // issued a whole step before their values are stored
   float pre[16];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) pre[j] = __ldg(src + roff[j]);
+  for (int j = 0; j < 16; ++j) pre[j] = spec<N>(src, roff[j], lane);
   stage_a(pre, atile, warp, lane, 1 + wg);
+  if (KSTEPS > 1) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) pre[j] = __ldg(src + roff[j] + BK);
+    for (int j = 0; j < 16; ++j) pre[j] = spec<N>(src, roff[j], BK + lane);
+  }
 
   // Each k-step's products go into a fresh partial, added to the fp32 sum
   // once the step is done: the tensor cores add only 12 products per
@@ -197,7 +220,8 @@ k1_product(const __grid_constant__ CUtensorMap w_long_hi,
       stage_a(pre, atile + ((s + 1) & 1) * (A_TILE / 4), warp, lane, 1 + wg);
     if (s + 2 < KSTEPS) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) pre[j] = __ldg(src + roff[j] + (s + 2) * BK);
+      for (int j = 0; j < 16; ++j)
+        pre[j] = spec<N>(src, roff[j], (s + 2) * BK + lane);
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     acc_fence(part);
@@ -227,8 +251,10 @@ k1_product(const __grid_constant__ CUtensorMap w_long_hi,
   }
 }
 
-// the C term: y[r, j] += w[119-j] * tail_in[r][j < 60 ? j : 119-j], j < 120;
-// tail_in is frame b-1's new tail (row r-L), or tail0[l] for frame 0
+// the C term: y[r, j] += w[119-j] * tail_in[r][j < 60 ? j : 119-j], j < 120
+// (the same 120 nonzeros at every N); tail_in is frame b-1's new tail (row
+// r-L), or tail0[l] for frame 0
+template <int N>
 __global__ void k1_overlap(const float* __restrict__ window,
                            const float* __restrict__ tails,
                            const float* __restrict__ tail0, int L, int R,
@@ -245,61 +271,90 @@ __global__ void k1_overlap(const float* __restrict__ window,
 
 // --- tensor maps of the W buffers ------------------------------------------
 
-// A map depends only on the buffer's address (all four have one shape), so
-// a small cache keyed on the address is always right.
-bool weight_map(const void* w, CUtensorMap* out) {
+// A map depends only on the buffer's address and its frame size (which
+// fixes its shape), so a small cache keyed on both is always right.
+bool weight_map(const void* w, int n, int rows, int cols, CUtensorMap* out) {
+  constexpr int SLOTS = 32;
   static std::mutex mu;
-  static const void* keys[8] = {};
-  static CUtensorMap maps[8];
+  static const void* keys[SLOTS] = {};
+  static int key_n[SLOTS] = {};
+  static CUtensorMap maps[SLOTS];
   static int next = 0;
   std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < 8; ++i)
-    if (keys[i] == w) {
+  for (int i = 0; i < SLOTS; ++i)
+    if (keys[i] == w && key_n[i] == n) {
       *out = maps[i];
       return true;
     }
   CUtensorMap m;
-  if (!tiled_map(w, NOUT, N, BN, BK, &m)) return false;
+  if (!tiled_map(w, rows, cols, BN, BK, &m)) return false;
   keys[next] = w;
+  key_n[next] = n;
   maps[next] = m;
-  next = (next + 1) % 8;
+  next = (next + 1) % SLOTS;
   *out = m;
   return true;
 }
 
-}  // namespace
-
-// freq: [B*L rows] of >= 960 floats, row stride ld (the packed spectra
-// buffer is read in place); trans: [B*L] uint8; tail0: [L, 60];
-// w_*: [1024, 960] split-TF32 product matrices (16-byte aligned);
-// window: [120]; y: [B*L, 960]; tails: [B*L, 60] (row (B-1)*L+l is lane
-// l's new tail); lists: int[2*B*L], counts: int[2] scratch.
-extern "C" int iamf_k1_imdct(const void* freq, int ld, const void* trans,
-                             const void* tail0, int B, int L,
-                             const void* w_long_hi, const void* w_long_lo,
-                             const void* w_short_hi, const void* w_short_lo,
-                             const void* window, void* y, void* tails,
-                             void* lists, void* counts, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <int N>
+int launch(const void* freq, int ld, const void* trans, const void* tail0,
+           int B, int L, const void* const* ws, const void* window, void* y,
+           void* tails, void* lists, void* counts, cudaStream_t s) {
+  using D = Dims<N>;
+  constexpr int SMEM_BYTES = OFF_ROWS + ROWS * 4 + 1024;
   const int R = B * L;
   CUtensorMap maps[4];
-  const void* ws[4] = {w_long_hi, w_long_lo, w_short_hi, w_short_lo};
   for (int i = 0; i < 4; ++i)
-    if (!weight_map(ws[i], &maps[i])) return (int)cudaErrorInvalidValue;
+    if (!weight_map(ws[i], N, D::NOUT, D::KP, &maps[i]))
+      return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaMemsetAsync(counts, 0, 2 * sizeof(int), s);
   if (e != cudaSuccess) return (int)e;
   partition_rows<<<(R + 255) / 256, 256, 0, s>>>(
       (const uint8_t*)trans, R, (int*)lists, (int*)counts);
-  e = cudaFuncSetAttribute(k1_product,
+  e = cudaFuncSetAttribute(k1_product<N>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((R + ROWS - 1) / ROWS, NOUT / BN, 2);
-  k1_product<<<grid, THREADS, SMEM_BYTES, s>>>(
+  dim3 grid((R + ROWS - 1) / ROWS, D::NOUT / BN, 2);
+  k1_product<N><<<grid, THREADS, SMEM_BYTES, s>>>(
       maps[0], maps[1], maps[2], maps[3], (const float*)freq, ld, R,
       (const int*)lists, (const int*)counts, (float*)y, (float*)tails);
-  k1_overlap<<<(R * 2 * OVER + 255) / 256, 256, 0, s>>>(
+  k1_overlap<N><<<(R * 2 * OVER + 255) / 256, 256, 0, s>>>(
       (const float*)window, (const float*)tails, (const float*)tail0, L, R,
       (float*)y);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// freq: [B*L rows] of >= n floats, row stride ld (the packed spectra
+// buffer is read in place); n: 120, 240, 480 or 960; trans: [B*L] uint8;
+// tail0: [L, 60]; w_*: [NOUT, KP] split-TF32 product matrices of frames of
+// n (16-byte aligned; imdct.product_mats); window: [120]; y: [B*L, n];
+// tails: [B*L, 60] (row (B-1)*L+l is lane l's new tail); lists: int[2*B*L],
+// counts: int[2] scratch.
+extern "C" int iamf_k1_imdct(const void* freq, int ld, int n,
+                             const void* trans, const void* tail0, int B,
+                             int L, const void* w_long_hi,
+                             const void* w_long_lo, const void* w_short_hi,
+                             const void* w_short_lo, const void* window,
+                             void* y, void* tails, void* lists, void* counts,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* ws[4] = {w_long_hi, w_long_lo, w_short_hi, w_short_lo};
+  switch (n) {
+    case 120:
+      return launch<120>(freq, ld, trans, tail0, B, L, ws, window, y, tails,
+                         lists, counts, s);
+    case 240:
+      return launch<240>(freq, ld, trans, tail0, B, L, ws, window, y, tails,
+                         lists, counts, s);
+    case 480:
+      return launch<480>(freq, ld, trans, tail0, B, L, ws, window, y, tails,
+                         lists, counts, s);
+    case 960:
+      return launch<960>(freq, ld, trans, tail0, B, L, ws, window, y, tails,
+                         lists, counts, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,10 @@
 devices (counterpart of iamf_tpu/parallel/pp_decoder.py).
 
 Stage A, on devices[0], is the host entropy (BatchedStreamDecoder's
-worker) and the codec synthesis: K1 + K2 for Opus, K7 for AAC, with the
-synthesis carries resident there. Stage B, on devices[1], is
+worker) and the codec synthesis: K1 + K2 for Opus at any operating point
+(n and hybrid passed, k frames regrouped into a unit row; SILK and mixed
+streams come decoded from the host), K7 for AAC, with the synthesis
+carries resident there. Stage B, on devices[1], is
 core/pipeline.decode_frames (demix, render, mix, K3), with its carry
 resident there. A batch's [B, C, T] activations cross by
 ``.to(dev_b, non_blocking=True)``, and the CUDA launch queues pipeline the

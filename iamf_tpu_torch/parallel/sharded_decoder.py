@@ -106,8 +106,11 @@ class ShardedStreamDecoder:
             data, sound_system=sound_system, bits=bits, limiter=limiter,
             batch_frames=128, device=mesh.devices[0])
         base = self.base
-        # a one-frame overlap prefix for the device filterbanks
-        self.prerolls = tuple(1 if e.opus or e.aac else 0
+        # a one-frame overlap prefix for the device filterbanks; Opus at
+        # any other operating point than CELT-960 with one frame a unit
+        # decodes on the host and shards as raw frames, with none (as the
+        # JAX sharded decoder: its carry chains pin that point)
+        self.prerolls = tuple(1 if self._device_opus(e) or e.aac else 0
                               for e in base.elems)
         # the stream's declared random-access prefix (informational: the
         # carry chains make deeper preroll needless)
@@ -130,6 +133,10 @@ class ShardedStreamDecoder:
         # {key: tensor} on the host
         self.final_limiter = None
 
+    @staticmethod
+    def _device_opus(e) -> bool:
+        return e.opus and e.opus_cfg == (960, 1, False)
+
     # --- host ---------------------------------------------------------------
 
     def _host_inputs(self) -> list:
@@ -142,14 +149,17 @@ class ShardedStreamDecoder:
         for e in base.elems:
             packets = [base.frames_per_substream.get(sid, [])
                        for sid in e.substream_ids]
-            if e.opus:
+            if self._device_opus(e):
                 arrays = (base._opus_entropy(e, packets, 0, n, n),)
                 kind = "opus"
             elif e.aac:
                 arrays = base._aac_entropy(e, packets, 0, n, n)
                 kind = "aac"
-            else:
+            elif e.raw_input:
                 arrays = (e.codec.decode_batch_raw(packets, T)[0][:n],)
+                kind = "raw"
+            else:  # other Opus: the host float decode
+                arrays = (e.codec.decode_batch(packets, T)[:n],)
                 kind = "raw"
             L = arrays[0].shape[1]
             fills = tuple(opus_synth.neutral_rows(()) if kind == "opus"

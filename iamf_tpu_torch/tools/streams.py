@@ -787,3 +787,139 @@ def build_fmp4(stream: bytes, frame_size: int = 960, fragments: int = 2,
         descriptors, units, frame_size=frame_size, fragments=fragments,
         base_data_offset=base_data_offset,
     )
+
+
+# --- Opus at other operating points, from an existing Opus stream ----------
+
+# variant -> (TOC config, frames a packet) for each unit parity; "mixed"
+# alternates hybrid-960 and CELT-960 unit by unit (RFC 6716 §3.1 configs:
+# 9 SILK WB 20 ms, 14/15 hybrid FB 10/20 ms, 28-31 CELT FB 2.5-20 ms)
+OPUS_VARIANTS = {
+    "celt480x2": ((30, 2), (30, 2)),
+    "celt240x4": ((29, 4), (29, 4)),
+    "celt120x8": ((28, 8), (28, 8)),
+    "hybrid960": ((15, 1), (15, 1)),
+    "hybrid480x2": ((14, 2), (14, 2)),
+    "silk960": ((9, 1), (9, 1)),
+    "mixed": ((15, 1), (31, 1)),
+}
+
+
+def retoc_packet(pkt: bytes, config: int, frames: int) -> bytes:
+    """An Opus packet with a new TOC config (the stereo bit kept) around
+    pkt's payload (the bytes after its TOC): code 0 for one frame, code 1
+    (two equal frames) with the payload twice, code 3 CBR (RFC 6716 §3.2.5)
+    with the payload cut into `frames` equal parts (a remainder dropped)."""
+    toc = (config << 3) | (pkt[0] & 0x4)
+    body = bytes(pkt[1:])
+    if frames == 1:
+        return bytes([toc]) + body
+    if frames == 2:
+        return bytes([toc | 1]) + body + body
+    size = len(body) // frames
+    return bytes([toc | 3, frames]) + body[:size * frames]
+
+
+def _audio_frame_payload(obu):
+    """(substream key, id prefix bytes, packet) of an audio-frame OBU: the
+    explicit-id type carries its substream id as a leb128 prefix."""
+    data = bytes(obu.payload)
+    if obu.type != 5:  # AUDIO_FRAME_ID0.. carry the id in the type
+        return obu.type, b"", data
+    i = 0
+    while data[i] & 0x80:
+        i += 1
+    return data[:i + 1], data[:i + 1], data[i + 1:]
+
+
+def retoc_opus_stream(data: bytes, variant: str) -> bytes:
+    """The Opus IAMF stream `data` at another operating point
+    (OPUS_VARIANTS): every audio-frame OBU rewrapped around its re-TOCed
+    packet with its trims, every other OBU copied byte for byte. Test
+    content, not a decoder feature: the payloads are the originals', so the
+    sound is loud and noisy, but every packet is legal."""
+    cfgs = OPUS_VARIANTS[variant]
+    out = bytearray()
+    units: dict = {}
+    pos = parser.find_sequence_header(data)
+    while pos < len(data):
+        obu = parser.split_obu(data, pos)
+        if obu is None:
+            break
+        raw = data[pos:pos + obu.size]
+        pos += obu.size
+        if not 5 <= obu.type <= 23:
+            out += raw
+            continue
+        key, prefix, pkt = _audio_frame_payload(obu)
+        u = units.get(key, 0)
+        units[key] = u + 1
+        config, frames = cfgs[u % 2]
+        out += builder.obu_wrap(obu.type,
+                                prefix + retoc_packet(pkt, config, frames),
+                                trim_start=obu.trim_start,
+                                trim_end=obu.trim_end)
+    return bytes(out)
+
+
+def build_opus_stereo_stream(data: bytes, n: int) -> bytes:
+    """A stereo IAMF stream of n-sample Opus frames (n = 480 or 240; CELT
+    FB, one frame a unit, TOC config 30 or 29) around the packets of the
+    Opus stream `data`'s substream 0 (a coupled one), with its codec
+    config's decoder_conf. The stream's head and tail trims are spread over
+    the first and last units, no OBU trimming more than its frame."""
+    config = {480: 30, 240: 29}[n]
+    pos = parser.find_sequence_header(data)
+    conf = None
+    pkts = []
+    while pos < len(data):
+        obu = parser.split_obu(data, pos)
+        if obu is None:
+            break
+        pos += obu.size
+        if obu.type == 0:
+            conf = parser.parse_codec_config(obu).decoder_conf
+        elif obu.type == 6:
+            pkts.append((bytes(obu.payload), obu.trim_start, obu.trim_end))
+    head = sum(t for _, t, _ in pkts)
+    tail = sum(t for _, _, t in pkts)
+    out = bytearray()
+    out += builder.sequence_header_obu()
+    out += builder.codec_config_obu(1, b"Opus", n, -(-3840 // n), conf)
+    out += builder.audio_element_obu(
+        element_id=1, element_type=ElementType.CHANNEL_BASED,
+        codec_config_id=1, substream_ids=[0],
+        layers=[builder.LayerSpec(ChannelLayout.STEREO, 1, 1)])
+    out += builder.mix_presentation_obu(
+        mix_presentation_id=10,
+        elements=[builder.MixElementSpec(
+            element_id=1, mix_gain_param=builder.ParamDefinition(id=100))],
+        layouts=[builder.LayoutSpec(sound_system=0)])
+    for u, (pkt, _, _) in enumerate(pkts):
+        ts = min(n, max(head - u * n, 0))
+        te = min(n, max(tail - (len(pkts) - 1 - u) * n, 0))
+        out += builder.audio_frame_obu(0, retoc_packet(pkt, config, 1),
+                                       trim_start=ts, trim_end=te)
+    return bytes(out)
+
+
+def loop_units(data: bytes, units: int) -> bytes:
+    """`data` (descriptors, then temporal units: split_into_units) with its
+    units repeated in order to `units` units; the repeats' audio-frame
+    OBUs are rewrapped without trims, so only the stream's own first pass
+    trims (30 s of Opus from the 16-unit sample: units = 1500)."""
+    desc, src = split_into_units(data)
+    out = bytearray(desc)
+    for u in range(units):
+        unit = src[u % len(src)]
+        if u < len(src):
+            out += unit
+            continue
+        pos = 0
+        while pos < len(unit):
+            obu = parser.split_obu(unit, pos)
+            raw = unit[pos:pos + obu.size]
+            pos += obu.size
+            out += (builder.obu_wrap(obu.type, bytes(obu.payload))
+                    if 5 <= obu.type <= 23 and obu.trimming else raw)
+    return bytes(out)

@@ -62,10 +62,11 @@ def stamps(cs, build, synth) -> None:
     for anchor, add in [
             ("  int steps = 0;\n", "  __shared__ unsigned tim[128 * 6];\n"),
             ("    const int cur = f & 1;\n", mark.format(0)),
-            ("    if (f > 0) copy_out(ring, zl, f - 1, t, 32);\n", mark.format(1)),
-            ("        comb_segment<false>(ring, fw, s, yb[cur], f, t);\n",
+            ("    if (f > 0) copy_out(ring, zl, (f - 1) * n, n, t, 32);\n",
+             mark.format(1)),
+            ("        comb_segment<false>(ring, fw, s, yb[cur], f * n, t);\n",
              "  " + mark.format("2 + k")),
-            ("  copy_out(ring, zl, B - 1, t, 0);\n",
+            ("  copy_out(ring, zl, (B - 1) * n, n, t, 0);\n",
              "  __syncthreads();\n  for (int i = t; i < 128 * 6; i += NT)\n"
              "    reinterpret_cast<unsigned*>(zl)[i] = tim[i];\n")]:
         assert text.count(anchor) == 1, anchor

@@ -69,7 +69,7 @@ def comb(window, y, pk, hist):
     for l in range(L):
         b = buf[l]
         for f in range(B):
-            for k, (s0, s1) in enumerate(synth.SEGMENTS):
+            for k, (s0, s1) in enumerate(synth.segments()):
                 lag1, lag2, c1, c2 = _segment(pk[f, l], fw, s0, s1)
                 ch = int(chunks[f, l, k])
                 for p0 in range(s0, s1, ch):

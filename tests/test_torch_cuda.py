@@ -1133,3 +1133,89 @@ def test_k12_cases(dev, celt, case):
     still = torch.ones(len(want), dtype=torch.bool) if cfg is None \
         else cfg < 0
     assert torch.equal(got[still], want[still])
+
+
+# --- the general Opus operating points --------------------------------------
+
+@pytest.mark.parametrize("hybrid", [False, True])
+@pytest.mark.parametrize("n", [120, 240, 480, 960])
+@pytest.mark.parametrize("B,L", [(1, 12), (37, 12), (128, 3)])
+def test_k1_every_frame_size(dev, B, L, n, hybrid):
+    """K1 at every CELT frame size, reading the packed rows in place (n +
+    13 wide, hybrid 2n + 13), a third of the rows transient, the tail
+    chained over two calls: < 0.25 at s16 scale against the twin."""
+    if hybrid and n < 480:
+        pytest.skip("hybrid frames are 480 or 960 samples")
+    rng = np.random.RandomState(B * n + hybrid)
+    width = synth.packed_width(n, hybrid)
+    mats_d, mats_c = imdct.FusedMats(n).to(dev), imdct.FusedMats(n)
+    tail_c = torch.from_numpy(rng.randn(L, 60).astype(np.float32) * 1024)
+    tail_d = tail_c.to(dev)
+    for _ in range(2):
+        buf = torch.from_numpy(
+            rng.randn(B, L, width).astype(np.float32) * 1000)
+        trans = torch.from_numpy(rng.rand(B, L) < 1 / 3)
+        launches = imdct.K1.launches
+        y, tail_d = imdct.imdct_overlap(mats_d, buf.to(dev)[..., :n],
+                                        trans.to(dev), tail_d)
+        assert imdct.K1.launches == launches + 1
+        y_p, tail_c = imdct.imdct_overlap(mats_c, buf[..., :n], trans,
+                                          tail_c)
+        assert y.shape == (B, L, n)
+        assert (y.cpu() - y_p).abs().max() < 0.25
+        assert (tail_d.cpu() - tail_c).abs().max() < 0.25
+
+
+@pytest.mark.parametrize("n,hybrid,B", [
+    (120, False, 8), (240, False, 8), (480, False, 8), (960, False, 8),
+    (480, True, 8), (960, True, 8), (480, False, 1), (120, False, 5),
+    (240, False, 5), (480, True, 3), (120, False, 1024)])
+def test_k2_every_frame_size(dev, n, hybrid, B):
+    """K2 at every frame size and hybrid, three chained calls of the rows of
+    tests/test_torch_opus_modes.py (calls of fewer than 960 samples and not
+    a multiple of 960 among them): hist' equal to the twin's (the comb is
+    bit-exact), PCM <= 1 LSB, demem' within k2_model.DEMEM_REL."""
+    from opus_modes import synth_buffers
+
+    L = 12
+    rng = np.random.RandomState(n + B)
+    w_c = torch.from_numpy(synth.window120().astype(np.float32))
+    w_d = w_c.to(dev)
+    h_c = torch.from_numpy(rng.randn(L, synth.HIST).astype(np.float32) * 300)
+    m_c = torch.from_numpy(rng.randn(L).astype(np.float32) * 300)
+    h_d, m_d = h_c.to(dev), m_c.to(dev)
+    for buf in synth_buffers(B, L, n, hybrid, calls=3, seed=n * B):
+        y = torch.from_numpy(rng.randn(B, L, n).astype(np.float32) * 3000)
+        buf = torch.from_numpy(buf)
+        launches = synth.K2.launches
+        pcm, h_d, m_d = synth.comb_deemph(w_d, y.to(dev), buf.to(dev), h_d,
+                                          m_d, hybrid)
+        assert synth.K2.launches == launches + 1
+        pcm_p, h_c, m_c = synth.comb_deemph(w_c, y, buf, h_c, m_c, hybrid)
+        assert pcm.shape == (B, L, n)
+        assert torch.equal(h_d.cpu(), h_c)
+        assert ((pcm.cpu() - pcm_p) * 32768).abs().max() <= 1
+        tol = k2_model.DEMEM_REL * max(1.0, float(m_c.abs().max()))
+        assert (m_d.cpu() - m_c).abs().max() <= tol
+
+
+@pytest.mark.parametrize("name", ["celt480x2", "celt240x4", "celt120x8",
+                                  "hybrid960", "hybrid480x2", "silk960",
+                                  "mixed"])
+def test_opus_variants_on_card(dev, name):
+    """The sample re-TOCed to each operating point, decoded on the card
+    against the port's CPU run, within tests/test_torch_opus_modes.py's
+    bounds; K1 and K2 launch once a call on the device-synthesis paths."""
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+    from opus_modes import EXPECT, assert_lsb, stream
+
+    want = BatchedStreamDecoder(stream(name), sound_system=9, batch_frames=8,
+                                device="cpu").decode_all()
+    dec = BatchedStreamDecoder(stream(name), sound_system=9, batch_frames=8,
+                               device="cuda")
+    k1, k2 = imdct.K1.launches, synth.K2.launches
+    got = dec.decode_all()
+    assert_lsb(got, want, loud=EXPECT[name][1] is not None)
+    device = EXPECT[name][1] is not None
+    assert (imdct.K1.launches > k1) == device
+    assert (synth.K2.launches > k2) == device

@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
+import test_torch_opus_modes as opus_modes
 import vectors
 from iamf_tpu.constants import ChannelLayout
 from iamf_tpu.core.batch_decoder import BatchedStreamDecoder as JaxDecoder
-from iamf_tpu_torch.codecs.opus.decoder import OpusDecoder
 from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,11 +83,20 @@ def test_truepeak_switch(monkeypatch, truepeak, limiter):
 
 @pytest.mark.parametrize("split", [("silk", 960, 1), ("hybrid", 960, 1),
                                    ("celt", 480, 2), ("host", 960, 1)])
-def test_unported_opus_operating_points_raise(monkeypatch, split):
-    """Only CELT-960 with one frame per unit reaches the device synthesis;
-    every other split of an Opus element is refused up front."""
-    monkeypatch.setattr(OpusDecoder, "classify_packets",
-                        lambda self, pkts, frame_size: split)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedStreamDecoder(_stream("opus_sample"), sound_system=9,
-                             batch_frames=8, device="cpu")
+def test_unported_opus_operating_points_raise(split):
+    """Once refused, every split of an Opus element now decodes: the
+    sample re-TOCed to SILK-only (host float decode), hybrid-960, CELT-480
+    two frames a unit and mixed hybrid/CELT (host), each within the bounds
+    of tests/test_torch_opus_modes.py of the JAX decoder, with its stats
+    path and opus_cfg."""
+    name = {("silk", 960, 1): "silk960", ("hybrid", 960, 1): "hybrid960",
+            ("celt", 480, 2): "celt480x2", ("host", 960, 1): "mixed"}[split]
+    want, stats = opus_modes.jax_decode(name, 8)
+    dec = BatchedStreamDecoder(opus_modes.stream(name), sound_system=9,
+                               batch_frames=8, device="cpu")
+    got = dec.decode_all()
+    path, cfg = opus_modes.EXPECT[name]
+    opus_modes.assert_lsb(got, want, loud=cfg is not None)
+    assert dec.stats == stats and stats["elements"][0]["path"] == path
+    if cfg is not None:
+        assert cfg[:2] == split[1:] and cfg[2] == (split[0] == "hybrid")

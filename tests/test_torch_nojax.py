@@ -124,6 +124,51 @@ def test_output_paths_without_jax(tmp_path, monkeypatch):
         assert np.abs(got[k].astype(np.int32) - w.astype(np.int32)).max() <= 1
 
 
+NOJAX_OPUS_MODES = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["iamf_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+from iamf_tpu_torch.tools import streams
+data = open(sys.argv[1] + "/iamf_tpu/data/sample_opus_714.iamf", "rb").read()
+out, paths = {}, []
+for name in ("hybrid480x2", "silk960"):
+    dec = BatchedStreamDecoder(streams.retoc_opus_stream(data, name),
+                               sound_system=9, batch_frames=8, device="cpu")
+    out[name] = dec.decode_all()
+    paths.append(dec.stats["elements"][0]["path"])
+assert paths == ["opus_device_hybrid", "opus_host_pipeline"], paths
+np.savez(sys.argv[2], **out)
+assert not any(m.split(".")[0] in ("jax", "iamf_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("NOJAX-OK")
+"""
+
+
+def test_opus_operating_points_without_jax(tmp_path):
+    """The sample re-TOCed to hybrid 480 x 2 (device synthesis with the
+    SILK pcm) and to SILK-only (the host float decode) decodes with JAX and
+    the JAX package blocked, held to the JAX decoder here within the bounds
+    of tests/test_torch_opus_modes.py."""
+    import numpy as np
+
+    import test_torch_opus_modes as opus_modes
+
+    out = tmp_path / "out.npz"
+    r = subprocess.run([sys.executable, "-c", NOJAX_OPUS_MODES, ROOT,
+                        str(out)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX-OK" in r.stdout
+    got = np.load(out)
+    for name in ("hybrid480x2", "silk960"):
+        want, _ = opus_modes.jax_decode(name, 8)
+        opus_modes.assert_lsb(got[name], want,
+                              loud=opus_modes.EXPECT[name][1] is not None)
+
+
 NOJAX_SERVING_PATHS = r"""
 import os
 import sys

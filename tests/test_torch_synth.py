@@ -20,6 +20,7 @@ from iamf_tpu.core.batch_decoder import BatchedStreamDecoder as JaxDecoder
 from iamf_tpu_torch import convert
 from iamf_tpu_torch.codecs.opus import synth
 from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+from test_torch_opus_modes import synth_both, synth_buffers
 
 SAMPLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "iamf_tpu", "data", "sample_opus_714.iamf")
@@ -99,9 +100,13 @@ def test_synthesis_matches_jax(source):
 
 
 def test_unported_operating_points_raise():
-    buf = torch.zeros((1, 2, 480 + 13))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synth.synthesize_packed(synth.CeltSynth(), buf,
+    """Once refused, 480-sample rows now synthesize: the CELT-480 constants
+    take them and match the JAX package (the other frame sizes and hybrid:
+    tests/test_torch_opus_modes.py); constants of another n refuse them."""
+    bufs = synth_buffers(4, 2, 480, False, seed=11)
+    synth_both(bufs, 480, False)
+    with pytest.raises(ValueError, match="n=960"):
+        synth.synthesize_packed(synth.CeltSynth(), torch.from_numpy(bufs[0]),
                                 synth.init_carry(2, "cpu"))
 
 
