@@ -132,10 +132,17 @@ Builds the hand-written kernels from iamf_tpu_torch/csrc, then:
      every frame size, and hybrid at 480 and 960, over 128·960 samples a
      lane against their twins, with times and bounds; celt480x2 looped to
      1,500 units (30 s) -> J at batch_frames 128, its realtime factor and
-     busy share.
+     busy share;
+ 20. the device Opus stream (codecs/opus/decoder.DeviceOpusStream, the
+     counterpart of the JAX package's TPUOpusStream): the Opus sample's
+     substreams in calls of 1, 1, 3 and 11 temporal units, K1 and K2
+     launched once a call and no other kernel, against the same stream on
+     the CPU and the host float decode (<= 1 LSB each), with each call's
+     wall, one call's device launches and one pass's busy share.
 Each phase prints its wall.
 Every kernel's launch count in the kernels line comes from the run of the
-path it serves (K1/K2/K3 the Opus decode, K8 the binaural, K10 the
+path it serves (K1/K2/K3 the Opus decode, K1 and K2 adding phase 20's
+stream, K8 the binaural, K10 the
 resampled one, K7 the AAC one, K9 the true-peak one, K11-K13 phase 17's
 path; K12's count sums its three entries), with the counts set
 to 0 just before that run; its
@@ -2808,6 +2815,108 @@ def opus_modes_phase(dev, tag, kernels):
           f"{tag}")
 
 
+# --- phase 20: the device Opus stream ----------------------------------------
+
+STREAM_SPLIT = (1, 1, 3, 11)  # temporal units a call
+
+
+def stream_phase(dev, tag, kernels):
+    """The device Opus stream (DeviceOpusStream, the counterpart of the
+    JAX package's TPUOpusStream) on the Opus sample's 7 substreams (12
+    lanes, n = 960) in calls of STREAM_SPLIT units, with the counts of
+    `kernels` (all ten) set to 0 just before the counted pass: K1 and K2
+    launched once a call and no other kernel; its PCM against the same
+    stream on the CPU (<= 1 LSB) and the host float decode
+    (OpusDecoder.decode, <= 1 LSB); each call's wall (median of 5 passes),
+    the device kernel launches of one call's synthesis (a CUDA graph of
+    it) and one pass's busy share (trace_decode). Returns the counted
+    pass's launches."""
+    from iamf_tpu_torch.codecs.opus import synth
+    from iamf_tpu_torch.codecs.opus.decoder import (
+        DeviceOpusStream, OpusDecoder, decode_spectrum_batch)
+    from iamf_tpu_torch.codecs.opus.imdct import K1
+    from iamf_tpu_torch.codecs.opus.synth import K2
+    from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
+
+    data = open(os.path.join(ROOT, "iamf_tpu", "data",
+                             "sample_opus_714.iamf"), "rb").read()
+    parsed = BatchedStreamDecoder(data, sound_system=9, batch_frames=8,
+                                  device="cpu")
+    e = parsed.elems[0]
+    check(e.opus_cfg == (FRAME, 1, False), f"sample opus_cfg {e.opus_cfg}")
+    conf = (e.codec.decoder_conf, e.codec.streams, e.codec.coupled_streams)
+    pkts = [parsed.frames_per_substream[s] for s in e.substream_ids]
+    units = [[p[u] for p in pkts] for u in range(len(pkts[0]))]
+    ends = np.cumsum((0,) + STREAM_SPLIT)
+    check(ends[-1] == len(units), f"{len(units)} units in the sample")
+    blocks = [units[a:b] for a, b in zip(ends[:-1], ends[1:])]
+
+    def run(device, walls=None):
+        s = DeviceOpusStream(*conf, FRAME, device=device)
+        outs = []
+        for blk in blocks:
+            t = time.perf_counter()
+            outs.append(s.decode_frames(blk))
+            if walls is not None:
+                walls.append(time.perf_counter() - t)
+        return np.concatenate(outs)
+
+    run(dev)  # warm-up
+    for k in kernels:
+        k.reset()
+    got = run(dev)
+    launches = {k.symbol: k.launches for k in kernels}
+    plain = {k.symbol: k.plain_on_cuda for k in kernels}
+    want = run("cpu")
+    host = OpusDecoder(*conf, FRAME)
+    ref = np.stack([host.decode(u) for u in units])
+    d_cpu = float(np.abs(got - want).max()) * 32768.0
+    d_host = np.abs(got - ref) * 32768.0
+    print(f"device opus stream, calls of {list(STREAM_SPLIT)} units: shape "
+          f"{got.shape}, max|diff| vs the CPU stream {d_cpu:.0f} LSB, vs the "
+          f"host decode {d_host.max():.3f} LSB ({int((d_host > 1).sum())} "
+          f"samples over 1); launches {launches}")
+    check(got.shape == want.shape == ref.shape == (len(units), LANES, FRAME),
+          f"device opus stream: shape {got.shape}")
+    check(np.isfinite(got).all(), "device opus stream: non-finite PCM")
+    check(d_cpu <= 1.0, f"device opus stream: {d_cpu} LSB from the CPU run")
+    check(d_host.max() <= 1 + 1e-3,
+          f"device opus stream: {d_host.max()} LSB from the host decode")
+    on_path = (K1.symbol, K2.symbol)
+    check(all(launches[k] == len(blocks) for k in on_path),
+          f"device opus stream: K1/K2 not once a call: {launches}")
+    check(not any(v for k, v in launches.items() if k not in on_path),
+          f"device opus stream: an off-path kernel launched: {launches}")
+    check(not any(plain.values()),
+          f"device opus stream: a plain twin ran on CUDA: {plain}")
+
+    per_call = [[] for _ in blocks]
+    for _ in range(5):
+        walls = []
+        run(dev, walls)
+        for i, w in enumerate(walls):
+            per_call[i].append(w)
+    print("device opus stream wall per call in ms (median of 5): "
+          + ", ".join(f"{b} unit{'s' * (b > 1)}: {_ms(w)}"
+                      for b, w in zip(STREAM_SPLIT, per_call)) + f" {tag}")
+
+    s = DeviceOpusStream(*conf, FRAME, device=dev)
+    d = decode_spectrum_batch(s.dec, blocks[-1])
+    buf = d["buf"]
+    buf[..., FRAME:FRAME + synth.N_PARAMS] = synth.pack_params(d)
+    buf_d = torch.from_numpy(buf).to(dev)
+    mod = synth.celt_synth(dev, FRAME)
+    n_dev = device_launches(
+        lambda: synth.synthesize_packed(mod, buf_d, s.carry, FRAME))
+    print(f"device opus stream: one {STREAM_SPLIT[-1]}-unit call's "
+          f"synthesis makes {n_dev} device kernel launches (K1's three and "
+          "K2's two among them)")
+    check(n_dev >= 5, f"device opus stream: {n_dev} device launches a call")
+    busy = trace_decode(lambda: run(dev), "device opus stream")
+    print(f"device opus stream: busy {busy:.1f} % of one pass's wall {tag}")
+    return launches
+
+
 def main() -> int:
     from iamf_tpu_torch import require_cuda
     from iamf_tpu_torch.codecs.aac.synth import K7
@@ -2869,7 +2978,11 @@ def main() -> int:
     launches.update(celt_launches)
     phase("18 multi-device", multidevice_phase, dev, tag, kernels)
     phase("19 opus operating points", opus_modes_phase, dev, tag, kernels)
-    print(f"phases 2-19: {time.perf_counter() - t_all:.1f} s wall")
+    streamed = phase("20 device opus stream", stream_phase, dev, tag,
+                     kernels + (K11, K12, K13))
+    for k in (K1, K2):
+        launches[k.symbol] += streamed[k.symbol]
+    print(f"phases 2-20: {time.perf_counter() - t_all:.1f} s wall")
 
     meta = {
         "k1_imdct_tdac": ("iamf_tpu_torch/csrc/imdct.cu",

@@ -6,7 +6,12 @@ codecs/base.open_decoder), its ``SpectrumMeta`` mirror and the postfilter
 tap gains. The reference's ``OpusDecoder.decode_spectrum_batch`` imports
 the JAX synthesis module for three layout constants; here it is the
 module function ``decode_spectrum_batch``, which takes them from
-codecs/opus/synth.py; its arguments and native calls are the same.
+codecs/opus/synth.py; its arguments and native calls are the same. Both
+read the reference's threading switches: IAMF_OPUS_SERIAL set runs the
+substreams one after the other, IAMF_OPUS_THREADS=n > 0 sizes the codec's
+substream pool. ``DeviceOpusStream`` is the reference's ``TPUOpusStream``:
+the entropy export feeding the device synthesis (codecs/opus/synth.py, K1
+and K2) one call per block of temporal units.
 
 IAMF opus decoder_conf (big-endian, IAMF spec §"Opus Specific"):
   version(u8) channels(u8) pre_skip(u16) input_sample_rate(u32)
@@ -23,10 +28,13 @@ import threading
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ...constants import Codec
+from ...device import resolve_device
 from ..base import CodecDecoder, register
-from .synth import MINPERIOD, N_PARAMS, packed_width
+from .synth import (MINPERIOD, N_PARAMS, celt_synth, init_carry,
+                    pack_params, packed_width, synthesize_packed)
 
 _TABLES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -206,6 +214,18 @@ class OpusDecoder(CodecDecoder):
             return ("host", frame_size, 1)
         return (modes.pop(), n, frame_size // n)
 
+    def substream_pool(self) -> cf.ThreadPoolExecutor:
+        """The codec's substream threads, made at first use and shared by
+        decode_batch and decode_spectrum_batch: IAMF_OPUS_THREADS=n > 0
+        threads (aggregate serving sets 1, where N decoders with a pool of
+        the host's cores each would oversubscribe it N-fold), else one a
+        substream up to the host's cores."""
+        if self._pool is None:
+            n = int(os.environ.get("IAMF_OPUS_THREADS", "0"))
+            self._pool = cf.ThreadPoolExecutor(
+                n if n > 0 else min(len(self._decoders), os.cpu_count() or 2))
+        return self._pool
+
     def decode_batch(self, packets_per_substream, frame_size):
         """Host decode path for the batched pipeline (SILK-only and
         mixed-mode streams): full native float decode of every packet —
@@ -257,21 +277,8 @@ class OpusDecoder(CodecDecoder):
                 b = e
 
         if len(self._decoders) > 1 and B > 1:
-            if self._pool is None:
-                import concurrent.futures as _cf
-
-                # pool sized to the host cores, not the substream count:
-                # 7 threads on a 2-core box only adds context switching,
-                # and in aggregate serving N streams each carry a pool
-                # IAMF_OPUS_THREADS overrides for aggregate serving:
-                # N concurrent decoders each carrying a cores-sized pool
-                # oversubscribe the host N-fold; the bench's threaded
-                # aggregate sets 1
-                _n = int(os.environ.get("IAMF_OPUS_THREADS", "0"))
-                self._pool = _cf.ThreadPoolExecutor(
-                    _n if _n > 0 else
-                    min(len(self._decoders), os.cpu_count() or 2))
-            list(self._pool.map(run_substream, range(len(self._decoders))))
+            list(self.substream_pool().map(run_substream,
+                                           range(len(self._decoders))))
         else:
             for i in range(len(self._decoders)):
                 run_substream(i)
@@ -384,25 +391,30 @@ def decode_spectrum_batch(codec, frames, n: int = 960, k: int = 1,
                         * gains_tab[m[:, c["pf_tapset_new"]]])[:, None, :]
 
     parallel = len(decoders) > 1 and B > 1
+    # IAMF_OPUS_SERIAL set: one substream after the other (profiling on
+    # one thread, contention diagnosis); the output does not change
+    serial = bool(os.environ.get("IAMF_OPUS_SERIAL"))
     if hybrid:
         # The native hybrid band walk folds from scratch it has not written
         # (it lacks libopus's special_hybrid_folding) and keeps that scratch
         # per thread, so on a reused thread its output depends on what the
         # thread decoded before. New threads start it at zero: one a
-        # substream where the reference runs them in parallel, else one for
-        # them all, one after the other, as the reference runs them.
-        if parallel:
+        # substream where the reference runs them in parallel (under
+        # IAMF_OPUS_SERIAL each ends before the next starts: one thread for
+        # them all would change the output), else one for them all, one
+        # after the other, as the reference runs them.
+        if parallel and not serial:
             FreshThreads().map(run_substream, range(len(decoders)))
+        elif parallel:
+            for i in range(len(decoders)):
+                FreshThreads().map(run_substream, [i])
         else:
             FreshThreads().map(
                 lambda _: [run_substream(i) for i in range(len(decoders))],
                 [0])
-    elif parallel:
-        # substream codec states are independent: one host thread each
-        if getattr(codec, "_pool", None) is None:
-            codec._pool = cf.ThreadPoolExecutor(
-                min(len(decoders), os.cpu_count() or 2))
-        list(codec._pool.map(run_substream, range(len(decoders))))
+    elif parallel and not serial:
+        # substream codec states are independent: they share the pool
+        list(codec.substream_pool().map(run_substream, range(len(decoders))))
     else:
         for i in range(len(decoders)):
             run_substream(i)
@@ -414,3 +426,39 @@ def decode_spectrum_batch(codec, frames, n: int = 960, k: int = 1,
                 t_old=t_old, t_cur=t_cur, t_new=t_new,
                 g_old=g_old, g_cur=g_cur, g_new=g_new,
                 postfilter=min_period < (1 << 30), min_period=min_period)
+
+
+class DeviceOpusStream:
+    """Opus multistream decode with the CELT synthesis on the device; the
+    counterpart of TPUOpusStream, iamf_tpu/codecs/opus/decoder.py:407.
+
+    Each call entropy-decodes a block of temporal units on the host
+    (decode_spectrum_batch) and synthesises it in one synthesize_packed
+    call (K1, then K2, on a CUDA device; their plain twins on the CPU).
+    The synthesis carry (TDAC tail, comb history, de-emphasis memory)
+    runs from one call to the next, also where the frame size changes:
+    the constants are per frame size, the carry is not. K2 takes any comb
+    period, so no chunk is picked."""
+
+    def __init__(self, decoder_conf, streams, coupled_streams, frame_size,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.dec = OpusDecoder(decoder_conf, streams, coupled_streams,
+                               frame_size)
+        self.lanes = sum(ch for _, ch in self.dec._decoders)
+        self.carry = init_carry(self.lanes, self.device)
+
+    def decode_frames(self, frames, n: int = 960, k: int = 1,
+                      hybrid: bool = False) -> np.ndarray:
+        """frames: [B] lists of per-substream packets, each of k Opus
+        frames of n samples (hybrid: CELT bands over host SILK) -> PCM
+        [B·k, L, n] float32 at s16 granularity."""
+        if not frames:
+            return np.zeros((0, self.lanes, n), np.float32)
+        d = decode_spectrum_batch(self.dec, frames, n=n, k=k, hybrid=hybrid)
+        buf = d["buf"]
+        buf[..., n:n + N_PARAMS] = pack_params(d)
+        pcm, self.carry = synthesize_packed(
+            celt_synth(self.device, n), torch.from_numpy(buf).to(self.device),
+            self.carry, n, hybrid)
+        return pcm.cpu().numpy()

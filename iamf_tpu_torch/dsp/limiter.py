@@ -96,6 +96,17 @@ def truepeak_filters() -> np.ndarray:
     return phases.astype(np.float32)
 
 
+def emit_truepeak_c_table() -> str:
+    """C initializer of truepeak_filters' table (a copy of
+    iamf_tpu/dsp/limiter.py's): a C oracle of the meter compiled from this
+    string holds the very constants the port's meter reads."""
+    h = truepeak_filters()
+    rows = ",\n".join(
+        "  {" + ", ".join(f"{v:.9e}f" for v in row) + "}" for row in h)
+    return ("static const float TP_PHASES_TAB[%d][%d] = {\n%s\n};\n"
+            % (TP_PHASES, TP_TAPS, rows))
+
+
 @dataclasses.dataclass(frozen=True)
 class LimiterConfig:
     threshold_db: float = LIMITER_THRESHOLD_DB

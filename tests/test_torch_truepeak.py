@@ -33,6 +33,13 @@ def test_taps_match():
         jlim.TP_PHASES, jlim.TP_TAPS, jlim.TP_HIST)
 
 
+def test_c_table_matches_jax():
+    """The true-peak taps as a C initializer: the JAX package's string."""
+    got = limiter.emit_truepeak_c_table()
+    assert got == jlim.emit_truepeak_c_table()
+    assert got.startswith("static const float TP_PHASES_TAB[4][12] = {")
+
+
 def test_k9_literal_taps():
     """csrc/truepeak.cu's __constant__ table is truepeak_filters, bit for
     bit."""
