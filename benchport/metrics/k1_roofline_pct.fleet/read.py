@@ -1,0 +1,20 @@
+"""k1_roofline_pct.fleet: K1's function (CELT IMDCT + TDAC overlap): its
+bound over its device time in the traced window, %. The bound
+(harness/roofline.py: bytes over 3.35 TB/s or the fewest operations over
+67 TFLOP/s, H100 SXM at 700 W) is of the work the streams completed in the
+window need: every frame of every channel lane once. The device time is
+that of the kernels named under kernels/ (device trace)."""
+
+from harness import roofline
+
+
+def read(run):
+    if run.trace is None or not run.win.streams_done:
+        return None
+    t = run.trace.kernel_s(run.symbols)
+    if t <= 0:
+        return None
+    cfg = run.cfg
+    bound = sum(roofline.k1_bound(s.units, cfg["channels"])
+                for s in run.win.streams_done)
+    return 100.0 * bound / t
