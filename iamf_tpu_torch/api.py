@@ -45,6 +45,7 @@ from .dsp.quantize import quantize_interleave
 from .dsp.resample import Resampler
 from .obu import objects as o
 from .obu import parser
+from .utils import trace
 
 OUTPUT_SAMPLERATE = 48000
 
@@ -486,6 +487,7 @@ class IAMFDecoder:
                 self.decoders[i].receive_packet(idx, frame)
                 return
 
+    @trace.spanned("serial.decode")
     def decode(self, data: Optional[bytes]) -> tuple[int, Optional[np.ndarray]]:
         """Decode one access unit. data=None flushes.
 
@@ -538,7 +540,8 @@ class IAMFDecoder:
 
             strim, etrim = dec.strim, dec.etrim
             try:
-                x = dec.decode()
+                with trace.span("serial.codec"):
+                    x = dec.decode()
                 if self.stream_log:
                     self._logs_rec.setdefault(stream.element_id, []).append(
                         x.cpu().numpy().copy()
@@ -561,7 +564,8 @@ class IAMFDecoder:
             renderer.offset = dec.delay if dec.delay > 0 else 0
             if stream.trimming_start:
                 renderer.offset = 0
-            y = renderer.render(x, ret)
+            with trace.span("serial.render"):
+                y = renderer.render(x, ret)
             if self.stream_log:
                 self._logs_ren.setdefault(stream.element_id, []).append(
                     y.cpu().numpy().copy()
@@ -603,34 +607,37 @@ class IAMFDecoder:
                 stream.timestamp += dec.frame_size
                 continue
 
-            # element mix gain
-            item = self.db.elements.get(stream.element_id)
-            if item is not None and item.mix_gain is not None:
-                unit = item.mix_gain.get_mix_gain_unit(f_pts, samples, rate)
-                y = _apply_gain(y, unit)
+            with trace.span("serial.render"):
+                # element mix gain
+                item = self.db.elements.get(stream.element_id)
+                if item is not None and item.mix_gain is not None:
+                    unit = item.mix_gain.get_mix_gain_unit(f_pts, samples,
+                                                           rate)
+                    y = _apply_gain(y, unit)
 
-            if item is not None and item.demixing is not None:
-                if stream.dmx_mode >= 0:
-                    self.metadata.dmixp_mode = stream.dmx_mode
+                if item is not None and item.demixing is not None:
+                    if stream.dmx_mode >= 0:
+                        self.metadata.dmixp_mode = stream.dmx_mode
 
-            if mixed is None:
-                mixed = y
-                frame_samples = samples
-                pts = f_pts
-            elif samples == frame_samples:
-                mixed = mixed + y
+                if mixed is None:
+                    mixed = y
+                    frame_samples = samples
+                    pts = f_pts
+                elif samples == frame_samples:
+                    mixed = mixed + y
 
             stream.timestamp += dec.frame_size
 
         if mixed is None:
             return None
 
-        # output mix gain
-        if self.output_gain_pid is not None:
-            pi = self.db.parameters.get(self.output_gain_pid)
-            if pi is not None:
-                unit = pi.get_mix_gain_unit(pts, frame_samples, rate)
-                mixed = _apply_gain(mixed, unit)
+        with trace.span("serial.render"):
+            # output mix gain
+            if self.output_gain_pid is not None:
+                pi = self.db.parameters.get(self.output_gain_pid)
+                if pi is not None:
+                    unit = pi.get_mix_gain_unit(pts, frame_samples, rate)
+                    mixed = _apply_gain(mixed, unit)
 
         self.db.parameters_time_elapse(frame_samples, rate)
 
@@ -670,6 +677,7 @@ class IAMFDecoder:
             return None
         return self._limit_quantize(to_device(tail, self.device))
 
+    @trace.spanned("serial.limit")
     def _limit_quantize(self, x: torch.Tensor) -> np.ndarray:
         """Limiter (when on) and quantize/interleave on the device, then the
         int PCM to the host in one copy: [samples, channels or 12]."""

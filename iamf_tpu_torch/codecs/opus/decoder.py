@@ -83,9 +83,6 @@ def _load_native():
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(SpectrumMeta),
     ]
-    _lib.iamf_opus_prof_read.restype = None
-    _lib.iamf_opus_prof_read.argtypes = [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
     _lib.iamf_opus_decode_float_batch.restype = ctypes.c_int
     _lib.iamf_opus_decode_float_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),

@@ -77,6 +77,7 @@ from ..dsp.quantize import quantize_interleave
 from ..dsp.resample import ResamplePlan, resample_stream
 from ..mp4.iamf_track import MP4IAMFParser
 from ..obu import parser
+from ..utils import trace
 from . import timeline
 from .database import Database, codec_config_sampling_rate
 from .pipeline import (ElementSpec, PipelineConfig, decode_frames, init_carry,
@@ -189,6 +190,7 @@ def synthesize_elements(kinds: tuple, synths: dict, syn: list, bufs: list):
     return xs, out
 
 
+@trace.spanned("plan.launch")
 def fused_decode(cfg: PipelineConfig, kinds: tuple, synths: dict,
                  carry: dict, params: dict, bufs: list):
     """Codec synthesis for each element (synthesize_elements), then the
@@ -219,15 +221,20 @@ def put_bufs(per_stream: list, device, staging: dict) -> list:
     pin = torch.device(device).type == "cuda"
 
     def put(key, arrs):
-        if key not in staging:
-            staging[key] = torch.empty(
-                (len(arrs),) + arrs[0].shape,
-                dtype=torch.from_numpy(arrs[0][:0]).dtype, pin_memory=pin)
-        buf = staging[key]
-        host = buf.numpy()
-        for s, a in enumerate(arrs):
-            host[s] = a
-        return buf.to(device, copy=True)
+        with trace.span("plan.put"):
+            if key not in staging:
+                staging[key] = torch.empty(
+                    (len(arrs),) + arrs[0].shape,
+                    dtype=torch.from_numpy(arrs[0][:0]).dtype,
+                    pin_memory=pin)
+            buf = staging[key]
+            host = buf.numpy()
+            for s, a in enumerate(arrs):
+                host[s] = a
+            trace.count("h2d_bytes", host.nbytes)
+        # blocking: waits for the work queued on the device, then copies
+        with trace.span("plan.copy"):
+            return buf.to(device, copy=True)
 
     return [tuple(put((i, j), p) for j, p in enumerate(zip(*parts)))
             if isinstance(parts[0], tuple) else put(i, parts)
@@ -241,6 +248,7 @@ class _HostPlan:
     call/trim bookkeeping. Shared by BatchedStreamDecoder.decode_all and
     serving.MultiStreamServer, which stacks a bucket's plans."""
 
+    @trace.spanned("plan.build")
     def __init__(self, dec: "BatchedStreamDecoder", rows: int | None = None):
         self.dec = dec
         B = self.B = dec.batch_frames
@@ -394,6 +402,7 @@ class BatchedStreamDecoder:
             parts.append(packet)
         return cls(b"".join(parts), **kw)
 
+    @trace.spanned("front.construct")
     def __init__(self, data: bytes, sound_system: int = 0, bits: int = 16,
                  batch_frames: int = 128, limiter: bool = True,
                  normalization_db: float | None = None,
@@ -421,48 +430,50 @@ class BatchedStreamDecoder:
             self.layout = OutputLayout(
                 type=LayoutType.SS_CONVENTION, sound_system=sound_system)
 
-        off = parser.find_sequence_header(data)
-        if off < 0:
-            raise ValueError("no sequence header")
-        body = data[off:] if isinstance(data, bytes) else bytes(
-            memoryview(data)[off:])
-        recs = parser.split_records(body)
-        # a non-redundant Sequence Header after the first ends this
-        # segment: the rest is the follow-on decoder's (decode_all)
-        seq = np.flatnonzero(
-            (recs[:, 0] == 31) & ((recs[:, 1] & 1) == 0))  # SEQUENCE_HEADER
-        if seq.size > 1:
-            j = int(seq[1])
-            self._next_data = body[int(recs[j, 2]):]
-            recs = recs[:j]
-        types = recs[:, 0]
-        sids = recs[:, 7]
-        self.frames_per_substream: dict[int, list[bytes]] = {}
-        self.trims: list[tuple[int, int]] = []
-        self._frame_pos = {}
-        for s in np.unique(sids[sids >= 0]):
-            idx = np.flatnonzero(sids == s)
-            self._frame_pos[int(s)] = idx
-            self.frames_per_substream[int(s)] = [
-                body[recs[i, 3]: recs[i, 3] + recs[i, 4]] for i in idx]
-        param_obus: list = []
-        for i in np.flatnonzero((types >= 0) & (types <= 3)):
-            obu = parser.split_obu(body, int(recs[i, 2]))
-            if obu.type == 0:
-                self.db.add_codec_config(parser.parse_codec_config(obu))
-            elif obu.type == 1:
-                self.db.add_element(parser.parse_audio_element(obu))
-            elif obu.type == 2:
-                self.db.add_mix_presentation(
-                    parser.parse_mix_presentation(obu))
-            else:
-                param_obus.append((int(i), obu))
+        with trace.span("front.parse"):
+            off = parser.find_sequence_header(data)
+            if off < 0:
+                raise ValueError("no sequence header")
+            body = data[off:] if isinstance(data, bytes) else bytes(
+                memoryview(data)[off:])
+            recs = parser.split_records(body)
+            # a non-redundant Sequence Header after the first ends this
+            # segment: the rest is the follow-on decoder's (decode_all)
+            seq = np.flatnonzero(  # 31: SEQUENCE_HEADER
+                (recs[:, 0] == 31) & ((recs[:, 1] & 1) == 0))
+            if seq.size > 1:
+                j = int(seq[1])
+                self._next_data = body[int(recs[j, 2]):]
+                recs = recs[:j]
+            types = recs[:, 0]
+            sids = recs[:, 7]
+            self.frames_per_substream: dict[int, list[bytes]] = {}
+            self.trims: list[tuple[int, int]] = []
+            self._frame_pos = {}
+            for s in np.unique(sids[sids >= 0]):
+                idx = np.flatnonzero(sids == s)
+                self._frame_pos[int(s)] = idx
+                self.frames_per_substream[int(s)] = [
+                    body[recs[i, 3]: recs[i, 3] + recs[i, 4]] for i in idx]
+            param_obus: list = []
+            for i in np.flatnonzero((types >= 0) & (types <= 3)):
+                obu = parser.split_obu(body, int(recs[i, 2]))
+                if obu.type == 0:
+                    self.db.add_codec_config(parser.parse_codec_config(obu))
+                elif obu.type == 1:
+                    self.db.add_element(parser.parse_audio_element(obu))
+                elif obu.type == 2:
+                    self.db.add_mix_presentation(
+                        parser.parse_mix_presentation(obu))
+                else:
+                    param_obus.append((int(i), obu))
 
-        mp = best_mix_presentation(self.db, self.layout, mix_presentation_id)
-        if mp is None:
-            raise ValueError("no mix presentation available")
-        self.mix_presentation = mp
-        sub = mp.sub_mixes[0]
+            mp = best_mix_presentation(self.db, self.layout,
+                                       mix_presentation_id)
+            if mp is None:
+                raise ValueError("no mix presentation available")
+            self.mix_presentation = mp
+            sub = mp.sub_mixes[0]
         out_ch = self.layout.channels
         # a stream not at 48 kHz is resampled after the mix, and the
         # limiter runs after the resampler (iamf_resample
@@ -474,18 +485,19 @@ class BatchedStreamDecoder:
         self._want_limiter = limiter
         self._peak_threshold_db = peak_threshold_db
         self.frame_size = None
-        self.elems: list[_ElemCtx] = []
-        for econf in sub.elements:
-            item = self.db.elements[econf.element_id]
-            self.elems.append(
-                self._open_element(item, econf, sound_system, out_ch))
-        self.synths = {}
-        for e in self.elems:
-            if e.opus:
-                self.synths[opus_kind(e.opus_cfg)] = opus_synth.celt_synth(
-                    self.device, e.opus_cfg[0])
-        if any(e.aac for e in self.elems):
-            self.synths["aac"] = aac_synth.Tables().to(self.device)
+        with trace.span("front.elements"):
+            self.elems: list[_ElemCtx] = []
+            for econf in sub.elements:
+                item = self.db.elements[econf.element_id]
+                self.elems.append(
+                    self._open_element(item, econf, sound_system, out_ch))
+            self.synths = {}
+            for e in self.elems:
+                if e.opus:
+                    self.synths[opus_kind(e.opus_cfg)] = opus_synth.celt_synth(
+                        self.device, e.opus_cfg[0])
+            if any(e.aac for e in self.elems):
+                self.synths["aac"] = aac_synth.Tables().to(self.device)
         out_gain_default = db_to_linear(
             q78_to_db(sub.output_mix_gain.default_mix_gain_q78))
         norm_gain = 1.0
@@ -527,11 +539,12 @@ class BatchedStreamDecoder:
         else:
             self.events = [("param", obu) for _, obu in param_obus]
 
-        self.params = timeline.replay(
-            self.db, self.elems, sub.elements, sub, self.events,
-            self.n_frames, self.frame_size, self.stream_rate,
-            out_gain_default, norm_gain,
-        )
+        with trace.span("front.timeline"):
+            self.params = timeline.replay(
+                self.db, self.elems, sub.elements, sub, self.events,
+                self.n_frames, self.frame_size, self.stream_rate,
+                out_gain_default, norm_gain,
+            )
 
         # Edge trims (iamf_frame_trim, IAMF_decoder.c:1361-1381) happen
         # BEFORE the limiter: with a limiter the trimmed samples are zeroed
@@ -876,8 +889,9 @@ class BatchedStreamDecoder:
                 else:
                     full[i * rows:(i + 1) * rows].copy_(out[0],
                                                         non_blocking=cuda)
-            if cuda:
-                torch.cuda.synchronize(dev)
+            with trace.span("plan.sync"):
+                if cuda:
+                    torch.cuda.synchronize(dev)
         finally:
             plan.close()
         want = plan.want

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .batch_decoder import (BatchedStreamDecoder, _HostPlan, fused_decode,
                             plan_kinds, put_bufs)
 from .pipeline import stack
@@ -115,7 +116,8 @@ class MultiStreamServer:
             carry, pcm = fused_decode(cfg, kinds, dec0.synths, carry, params,
                                       bufs)
             outs.append(pcm)  # [S, B*T, out]
-        if dec0.device.type == "cuda":
-            torch.cuda.synchronize(dec0.device)
+        with trace.span("plan.sync"):
+            if dec0.device.type == "cuda":
+                torch.cuda.synchronize(dec0.device)
         for s, (i, p) in enumerate(members):
             results[i] = [o[s] for o in outs[p.k0:p.k0 + p.n_batches]]

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..utils import trace
 
 
 def _world() -> tuple[int, int]:
@@ -214,6 +215,7 @@ class ShardMesh:
 
     # --- the five operations -------------------------------------------------
 
+    @trace.spanned("mesh.hop")
     def ppermute(self, values: dict, axis: str, shift: int,
                  src: int | None = None) -> dict:
         """Send each shard's tensors to the shard `shift` steps along
@@ -254,6 +256,7 @@ class ShardMesh:
                     out[j] = [torch.zeros_like(t) for t in values[j]]
         return out
 
+    @trace.spanned("mesh.hop")
     def psum(self, values: dict, axis: str) -> dict:
         """Sum over `axis` (jax.lax.psum): values {i: tensor} for this
         rank's shards; every member gets the sum, on its device. A rank
@@ -274,6 +277,7 @@ class ShardMesh:
                 out[i] = total.to(self.device(i))
         return out
 
+    @trace.spanned("mesh.hop")
     def all_gather(self, values: dict, axis: str, dim: int) -> dict:
         """Concatenate the members' tensors along `dim` in `axis` order;
         every member gets the whole. Across ranks each places its slabs in
@@ -303,6 +307,7 @@ class ShardMesh:
                 out[i] = full.to(self.device(i))
         return out
 
+    @trace.spanned("mesh.hop")
     def process_allgather(self, values: dict, axis: str = "frames"):
         """The ordered gather to every rank (multihost_utils.
         process_allgather): the tensors of the shards at position 0 of the

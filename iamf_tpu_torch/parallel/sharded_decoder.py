@@ -54,6 +54,7 @@ from ..core.pipeline import (element_mix, out_mix, shard_mix, stream_params,
                              window_params)
 from ..dsp.limiter import init_state, limit_quantize
 from ..dsp.quantize import quantize_interleave
+from ..utils import trace
 from .mesh import ShardMesh
 
 
@@ -139,6 +140,7 @@ class ShardedStreamDecoder:
 
     # --- host ---------------------------------------------------------------
 
+    @trace.spanned("mesh.inputs")
     def _host_inputs(self) -> list:
         """Per element: (kind, whole-stream arrays [n, L, ...] (AAC: spectra
         and window meta), their neutral rows), the lanes padded to a
