@@ -8,9 +8,11 @@ decodes the same inputs and the program's PCM is held to it:
   ``CHECK_STREAMS`` - 1 more drawn from the seed, each over the samples
   its decode_all() returns (the limiter's drained tail is not among
   them); in the sharded cell, the first request's whole stream; in the
-  serial cell, every sample the decoder returned, its warm-up's calls
-  and the window's. An output
-  shorter than that is broken;
+  serial cell, every sample the decoder returned in its warm-up's calls
+  and the window's first drivers.CHECK_CALLS calls (the reference is a
+  recurrence from the stream's start, so a later call costs it every
+  unit before it: the cap keeps its work from growing with the calls a
+  window makes). An output shorter than that is broken;
 - ``max_gap_lsb``: the widest gap, in s16 steps, between a sample the
   program output and the reference's;
 - ``share_over_1lsb``: the share of the samples whose gap is over one s16
@@ -133,6 +135,9 @@ def sharded_numbers(cfg, traffic, win, seed, device, tf32=False) -> dict:
 
 
 def serial_numbers(cfg, traffic, win, seed, device, tf32=False) -> dict:
+    """Every sample of the kept calls (win.units: the warm-up's and the
+    window's first drivers.CHECK_CALLS) against the reference's decode of
+    those units and one more, parsed from the stream's start that far."""
     got = win.outputs
     if got is None:
         return dict(BROKEN, samples=0)

@@ -61,7 +61,9 @@ def _opus_stream(cfg: dict, units: int, rng) -> Stream:
         sample = f.read()
     _, src = ib.split_into_units(sample)
     data = ib.loop_units(sample, units, int(rng.randint(len(src))))
-    lead, tail = ib.trims(data)
+    # known from how the loop is built: a walk over the looped stream's
+    # OBUs would cost set-up in proportion to its length
+    lead, tail = ib.loop_trims(sample)
     return Stream(data, units, (units * FRAME - lead - tail) / 48000.0)
 
 

@@ -13,7 +13,11 @@
 - ``serial``: the frame-serial player. One ``IAMFDecoder`` configured on
   the stream, warmed by its first ``WARM_UNITS`` calls, then one temporal
   unit a ``decode()`` call, each call timed to its host PCM, closed loop,
-  until ``seconds``.
+  until ``seconds``; a traced window (``traced``) closes after
+  ``CHECK_CALLS`` calls if that comes first, so its trace stays bounded
+  however fast the calls get. The PCM of the warm-up and of the window's
+  first ``CHECK_CALLS`` calls is kept for the check, so that neither what
+  is kept nor the reference's work grows with the calls a window makes.
 
 Each returns a Window: its host spans by name, the audio seconds and the
 requests completed, and what the correctness check compares.
@@ -32,6 +36,10 @@ from torch.profiler import record_function
 KEEP_WITHIN = 4
 # the serial player: decode() calls that warm the decoder up in set-up
 WARM_UNITS = 32
+# the serial player: the window's calls whose PCM the check compares, and
+# the most calls a traced window makes (above the 3,239 that a 51 s window
+# of the first port's 16-20 ms calls held)
+CHECK_CALLS = 4000
 
 
 class Window:
@@ -88,7 +96,7 @@ class Fleet:
         self._serve(None)
         _sync(self.device)
 
-    def run(self, seconds: float) -> Window:
+    def run(self, seconds: float, traced: bool = False) -> Window:
         win = Window()
         win.fleet_streams = self.streams
         start = time.perf_counter()
@@ -143,7 +151,7 @@ class Sharded:
         self._decode(None)
         _sync(self.device)
 
-    def run(self, seconds: float) -> Window:
+    def run(self, seconds: float, traced: bool = False) -> Window:
         win = Window()
         win.fleet_streams = [self.stream]
         start = time.perf_counter()
@@ -190,12 +198,13 @@ class Serial:
         _sync(self.device)
         self.dec, self.data, self.pos = dec, data, pos
 
-    def run(self, seconds: float) -> Window:
+    def run(self, seconds: float, traced: bool = False) -> Window:
         win = Window()
         win.fleet_streams = [self.stream]
         dec, data, pos = self.dec, self.data, self.pos
         chunks = list(self.warm_pcm)
         calls = win.spans["decode_call"]
+        last = CHECK_CALLS if traced else None
         start = time.perf_counter()
         while pos < len(data):
             t0 = time.perf_counter()
@@ -208,9 +217,9 @@ class Serial:
                 win.failed += 1
                 break
             pos += consumed
-            if pcm is not None and len(pcm):
+            if pcm is not None and len(pcm) and win.attempted <= CHECK_CALLS:
                 chunks.append(pcm)
-            if t1 - start >= seconds:
+            if t1 - start >= seconds or win.attempted == last:
                 break
         else:
             raise RuntimeError("the serial stream ended inside the window: "
@@ -219,8 +228,8 @@ class Serial:
         win.audio_s = win.attempted * 960 / 48000.0
         win.outputs = np.concatenate(chunks) if chunks else None
         # the units whose PCM the outputs hold: the warm-up's and the
-        # window's
-        win.units = WARM_UNITS + win.attempted
+        # window's first CHECK_CALLS
+        win.units = WARM_UNITS + min(win.attempted, CHECK_CALLS)
         self.dec = None
         return win
 

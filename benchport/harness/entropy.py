@@ -18,12 +18,13 @@ from . import iamf_bits as ib
 KEYS = ("transient", "t_old", "t_cur", "t_new", "g_old", "g_cur", "g_new")
 
 
-def parse(stream: bytes) -> dict:
+def parse(stream: bytes, units: int | None = None) -> dict:
     """The stream's Opus decoder_conf, substream counts, each substream's
-    packets and its trims at start and at end (iamf_bits.trims)."""
+    packets and its trims at start and at end (as iamf_bits.trims sums
+    them), over its first `units` temporal units: the walk stops there,
+    so its cost is that of the units read, not of the stream."""
     pos = ib.find_sequence_header(stream)
-    lead, tail = ib.trims(stream)
-    info = {"packets": {}, "lead": lead, "tail": tail}
+    info = {"packets": {}, "lead": 0, "tail": 0}
     while pos < len(stream):
         obu = ib.split_obu(stream, pos)
         pos += obu.size
@@ -38,18 +39,25 @@ def parse(stream: bytes) -> dict:
             info["coupled"] = p[-1]  # one layer: nb_coupled is its last byte
         elif ib.OBU_AUDIO_FRAME_ID0 <= obu.type <= ib.OBU_AUDIO_FRAME_ID17:
             sid = obu.type - ib.OBU_AUDIO_FRAME_ID0
-            info["packets"].setdefault(sid, []).append(p)
+            pk = info["packets"]
+            pk.setdefault(sid, []).append(p)
+            if sid == 0:
+                info["lead"] += obu.trim_start
+                info["tail"] += obu.trim_end
+            if (units is not None and len(pk) == info["substreams"]
+                    and min(len(v) for v in pk.values()) >= units):
+                break
     return info
 
 
 def opus_entropy(stream: bytes, units: int | None = None,
                  batch: int = 256) -> tuple[dict, dict]:
     """(entropy output of the stream's first `units` temporal units as
-    arrays [F, L, ...]: freq and KEYS; the parse)."""
+    arrays [F, L, ...]: freq and KEYS; the parse of those units)."""
     from iamf_tpu_torch.codecs.opus.decoder import (OpusDecoder,
                                                     decode_spectrum_batch)
 
-    info = parse(stream)
+    info = parse(stream, units)
     n = info["frame_size"]
     pk = info["packets"]
     total = min(len(v) for v in pk.values())

@@ -15,7 +15,8 @@ inputs:
   iamf_tpu_torch/tools/streams.py:75;
 - ``split_into_units``: iamf_tpu_torch/tools/streams.py:737;
 - ``loop_units``: iamf_tpu_torch/tools/streams.py:906, with a first unit
-  other than the stream's own (``first``).
+  other than the stream's own (``first``); ``loop_trims`` gives its trims
+  from how it is built.
 """
 
 from __future__ import annotations
@@ -459,6 +460,25 @@ def _retrim(unit: bytes, trim_start: int) -> bytes:
     return bytes(out)
 
 
+def _first_trim(unit: bytes) -> int:
+    """The trim at start of a unit's first audio frame."""
+    pos = 0
+    while pos < len(unit):
+        obu = split_obu(unit, pos)
+        if obu.is_audio_frame:
+            return obu.trim_start
+        pos += obu.size
+    return 0
+
+
+def loop_trims(data: bytes) -> tuple[int, int]:
+    """The trims at start and at end of any loop_units(data, ...): the
+    source's first trim at start (on the looped stream's first unit), none
+    at end. What trims() reads from the looped stream, without its walk
+    over every OBU."""
+    return _first_trim(split_into_units(data)[1][0]), 0
+
+
 def loop_units(data: bytes, units: int, first: int = 0) -> bytes:
     """`data`'s descriptors, then `units` temporal units taken in order from
     its unit `first` on, wrapping round. The stream's first unit carries
@@ -466,13 +486,7 @@ def loop_units(data: bytes, units: int, first: int = 0) -> bytes:
     every other unit carries none. With first = 0 and the source's trims
     at its first unit only, this is streams.loop_units."""
     desc, src = split_into_units(data)
-    pos, skip = 0, 0
-    while pos < len(src[0]):
-        obu = split_obu(src[0], pos)
-        if obu.is_audio_frame:
-            skip = obu.trim_start
-            break
-        pos += obu.size
+    skip = _first_trim(src[0])
     plain = [_retrim(u, 0) for u in src]
     out = bytearray(desc)
     out += _retrim(src[first % len(src)], skip)

@@ -9,10 +9,12 @@ from the seed (harness/content.py), builds or loads the kernels (the
 program's fixed build directory inside the checkout), warms the cell's
 path up once (all of that is set-up), then drives the path for
 ``--seconds`` (harness/drivers.py), closed loop. With ``--trace 1`` the
-window runs under torch.profiler and the run reports the cell's per-layer
-metrics, the device's busy seconds and a breakdown; with ``--trace 0`` its
-end-to-end metrics. After the window the plain reference decodes the same
-inputs and the program's PCM is held to it (harness/check.py).
+window runs under torch.profiler (the serial player's closes at
+drivers.CHECK_CALLS calls if that comes first) and the run reports the
+cell's per-layer metrics, the device's busy seconds and a breakdown; with
+``--trace 0`` its end-to-end metrics. After the window the plain
+reference decodes the same inputs and the program's PCM is held to it
+(harness/check.py).
 
 The last line of standard output is one JSON object: correct, attempted,
 failed, metrics, device (and breakdown with --trace 1), and last the
@@ -116,7 +118,7 @@ def main(argv=None, device: str = "cuda", root: str = ROOT) -> int:
         if device == "cuda":
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
-            win = driver.run(args.seconds)
+            win = driver.run(args.seconds, traced=True)
         dtrace = trace.from_profiler(prof)
         del prof
     else:
