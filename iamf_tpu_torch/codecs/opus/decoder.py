@@ -9,7 +9,11 @@ module function ``decode_spectrum_batch``, which takes them from
 codecs/opus/synth.py; its arguments and native calls are the same. Both
 read the reference's threading switches: IAMF_OPUS_SERIAL set runs the
 substreams one after the other, IAMF_OPUS_THREADS=n > 0 sizes the codec's
-substream pool. ``DeviceOpusStream`` is the reference's ``TPUOpusStream``:
+substream pool. Unlike the reference's, the serial ``OpusDecoder.decode``
+also runs a unit's substreams on that pool, where the unit is CELT-only:
+hybrid, SILK and lost packets stay on the calling thread, whose history a
+native hybrid decode reads (ROADMAP.md §1); the output is the same either
+way. ``DeviceOpusStream`` is the reference's ``TPUOpusStream``:
 the entropy export feeding the device synthesis (codecs/opus/synth.py, K1
 and K2) one call per block of temporal units.
 
@@ -32,6 +36,7 @@ import torch
 
 from ...constants import Codec
 from ...device import resolve_device
+from ...utils import trace
 from ..base import CodecDecoder, register
 from .synth import (MINPERIOD, N_PARAMS, celt_synth, init_carry,
                     pack_params, packed_width, synthesize_packed)
@@ -131,6 +136,9 @@ class OpusDecoder(CodecDecoder):
         self.delay = 0  # reference reports no codec delay for opus
         self._max = frame_size * 6
         self._pool = None  # lazy per-instance substream thread pool
+        # decode() has met a unit that is not CELT-only: every later unit
+        # stays on the calling thread
+        self._on_caller = False
 
     def __del__(self):
         try:
@@ -143,33 +151,77 @@ class OpusDecoder(CodecDecoder):
             pass
 
     def decode(self, packets: Sequence[Optional[bytes]]) -> np.ndarray:
+        """One temporal unit's packets, one a substream (None: lost) ->
+        planar float32 [channels, samples].
+
+        A unit whose packets are all present and CELT-only goes to the
+        substream pool: the calling thread decodes substream 0 while the
+        pool decodes the others, and the results are joined in substream
+        order. Each substream has its own codec state, and a CELT decode
+        reads no scratch it has not written, so the output is the same as
+        one substream after the other. Every other unit (hybrid, SILK, a
+        lost packet) runs one substream after the other on the calling
+        thread, and so does every later unit of this decoder: the native
+        hybrid band walk folds from per-thread scratch that it has not
+        written (ROADMAP.md §1), so a hybrid decode keeps the calling
+        thread's history, as the JAX package's serial decoder does. The
+        calling thread also runs every unit under IAMF_OPUS_SERIAL, with
+        one substream, or where the pool has one thread
+        (IAMF_OPUS_THREADS=1, the serving setting)."""
         lib = _load_native()
-        outs = []
-        samples = None
-        for i, (ptr, ch) in enumerate(self._decoders):
-            pkt = packets[i]
-            buf = np.zeros(self._max * ch, dtype=np.float32)
-            if pkt is None:
-                # lost packet: native energy-fade concealment (repeat the
-                # last frame at -6 dB/loss; the framework analogue of the
-                # reference's AAC_CONCEAL_METHOD=1 fade,
-                # aac_multistream_decoder.c:224)
-                r = lib.iamf_opus_decode_float(
-                    ptr, None, 0,
-                    buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                    self._max,
-                )
-            else:
-                r = lib.iamf_opus_decode_float(
-                    ptr, bytes(pkt), len(pkt),
-                    buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                    self._max,
-                )
-            if r < 0:
-                raise ValueError(f"opus decode failed ({r})")
-            outs.append(buf[: r * ch].reshape(r, ch).T)  # planar
-            samples = r
+        if self._pools(packets):
+            trace.count("opus.serial_units_pooled", 1)
+            pool = self.substream_pool()
+            rest = [pool.submit(self._decode_substream, lib, i, packets[i])
+                    for i in range(1, len(self._decoders))]
+            try:
+                first = self._decode_substream(lib, 0, packets[0])
+            finally:
+                # no substream's state may be in use when the call returns
+                cf.wait(rest)
+            outs = [first] + [f.result() for f in rest]
+        else:
+            trace.count("opus.serial_units_caller", 1)
+            outs = [self._decode_substream(lib, i, packets[i])
+                    for i in range(len(self._decoders))]
         return np.concatenate(outs, axis=0).astype(np.float32)
+
+    def _pools(self, packets) -> bool:
+        """Whether decode() sends this unit to the substream pool; a unit
+        that is not CELT-only keeps this decoder on the calling thread."""
+        if self._on_caller:
+            return False
+        if not all(p and p[0] >> 3 >= 16 for p in packets):
+            self._on_caller = True
+            return False
+        return (len(self._decoders) > 1
+                and not os.environ.get("IAMF_OPUS_SERIAL")
+                and self.substream_pool()._max_workers > 1)
+
+    def _decode_substream(self, lib, i: int, pkt) -> np.ndarray:
+        """Substream i's native float decode of pkt (None: lost) -> planar
+        [ch, samples]."""
+        ptr, ch = self._decoders[i]
+        buf = np.zeros(self._max * ch, dtype=np.float32)
+        if pkt is None:
+            # lost packet: native energy-fade concealment (repeat the
+            # last frame at -6 dB/loss; the framework analogue of the
+            # reference's AAC_CONCEAL_METHOD=1 fade,
+            # aac_multistream_decoder.c:224)
+            r = lib.iamf_opus_decode_float(
+                ptr, None, 0,
+                buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                self._max,
+            )
+        else:
+            r = lib.iamf_opus_decode_float(
+                ptr, bytes(pkt), len(pkt),
+                buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                self._max,
+            )
+        if r < 0:
+            raise ValueError(f"opus decode failed ({r})")
+        return buf[: r * ch].reshape(r, ch).T  # planar
 
     def classify_packets(self, packets_per_substream, frame_size):
         """Scan the TOC bytes of every packet (cheap: one byte each) and

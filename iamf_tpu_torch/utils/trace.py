@@ -42,7 +42,10 @@ The spans of the decoders, by layer:
 - serial API: ``serial.decode`` (root: one ``IAMFDecoder.decode`` call),
   inside it ``serial.codec`` (each element's frame decode and demix),
   ``serial.render`` (render, mix gains, mix) and ``serial.limit``
-  (limiter, quantize and the copy to the host);
+  (limiter, quantize and the copy to the host); the counters
+  ``opus.serial_units_pooled`` and ``opus.serial_units_caller`` add one
+  for each Opus unit the serial decode runs on the codec's substream pool
+  or on the calling thread (codecs/opus/decoder.OpusDecoder.decode);
 - mesh: ``mesh.inputs`` (the whole stream's host entropy and unpack of
   ShardedStreamDecoder) and ``mesh.hop`` (each ShardMesh exchange).
 """

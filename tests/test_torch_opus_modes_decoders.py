@@ -13,13 +13,18 @@ from iamf_tpu import api as japi
 from iamf_tpu.parallel import sharded_decoder as jax_sharded
 from iamf_tpu.parallel.pp_decoder import PipelinedStreamDecoder as JaxPP
 from iamf_tpu_torch import api as papi
+from iamf_tpu_torch.codecs.opus.decoder import FreshThreads
 from iamf_tpu_torch.core.batch_decoder import BatchedStreamDecoder
 from iamf_tpu_torch.core.serving import MultiStreamServer
 from iamf_tpu_torch.parallel.pp_decoder import PipelinedStreamDecoder
 from iamf_tpu_torch.parallel.sharded_decoder import ShardedStreamDecoder
 from iamf_tpu_torch.tools.streams import split_into_units
 from test_torch_api import serial_decode
-from opus_modes import EXPECT, assert_lsb, stream
+from opus_modes import EXPECT, assert_lsb, sample, stream
+
+
+def on_new_thread(fn, *a, **kw):
+    return FreshThreads().map(lambda _: fn(*a, **kw), [0])[0]
 
 
 def batched(name, bf):
@@ -75,9 +80,16 @@ def test_sharded_matches_jax(name):
         assert_lsb(got, batched(name, 8))
 
 
-@pytest.mark.parametrize("name", ["silk960", "celt480x2"])
+@pytest.mark.parametrize("name", ["silk960", "celt480x2", "sample",
+                                  "hybrid960"])
 def test_serial_matches_jax(name):
-    want = serial_decode(japi.IAMFDecoder(), stream(name), ss=9)
-    got = serial_decode(papi.IAMFDecoder(device="cpu"), stream(name), ss=9)
+    """The port's serial Opus decode runs CELT-only units on the codec's
+    substream pool, the JAX one on the calling thread: the same native
+    decode, so the same PCM (0 LSB measured). Each runs on a new thread:
+    a native hybrid decode reads its thread's history (ROADMAP.md §1)."""
+    data = sample() if name == "sample" else stream(name)
+    want = on_new_thread(serial_decode, japi.IAMFDecoder(), data, ss=9)
+    got = on_new_thread(serial_decode, papi.IAMFDecoder(device="cpu"), data,
+                        ss=9)
     assert len(want) > 0
     assert_lsb(got, want)
