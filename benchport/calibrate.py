@@ -83,8 +83,8 @@ def main(argv=None, device: str = "cuda") -> int:
         if n < args.control_seeds:
             win.outputs = control_outputs(cell.config, cell.traffic, win,
                                           seed, device)
-            ctl = check.numbers(cell.config, cell.traffic, win, seed, device)
-            ctl.pop("entropy_gap", None)
+            ctl = check.output_numbers(cell.config, cell.traffic, win, seed,
+                                       device)
         print(json.dumps({"seed": seed, "program": prog, "control": ctl}),
               flush=True)
         for k, v in prog.items():

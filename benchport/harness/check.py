@@ -21,27 +21,21 @@ decodes the same inputs and the program's PCM is held to it:
   decides either way, and a decision taken the other way moves some
   hundreds of samples by up to ~20 steps; the widest gap then swings from
   seed to seed as far as the control's, and the share does not;
-- ``entropy_gap`` (Opus): the reference starts from the program's Opus
-  entropy output (harness/entropy.py), so that stage is held by itself to
-  a frozen copy of its output on the Opus sample's 16 units: the largest
-  gap of a spectrum value, as a share of its frame and lane's peak, and
-  any difference in the frames' flags, periods and gains.
+- what the configuration's reference adds (its ``numbers``), such as
+  the check of a program stage that the reference starts from.
+The reference is the module that the configuration's ``reference`` names
+(reference/__init__.py says what it defines), found under the run's root.
 Each number has its limit in the configuration's ``limits``.
 """
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
-from . import entropy
+from reference import DELAY
+
+from . import content, manifest
 from .content import ROOT
-
-DELAY = 240
-FROZEN = os.path.join(ROOT, "benchport", "reference",
-                      "opus_sample_entropy.npz")
-
 
 BROKEN = {"max_gap_lsb": 1 << 30, "share_over_1lsb": 1.0}
 CHECK_STREAMS = 3
@@ -67,37 +61,17 @@ def _numbers(gaps: list) -> dict:
             "samples": samples}
 
 
+def reference(cfg: dict, root: str = ROOT):
+    """The configuration's plain reference, found by name under `root`."""
+    return manifest.load("reference", cfg["reference"], root)
+
+
 def reference_pcm(cfg: dict, stream, units: int | None = None,
-                  device="cuda", tf32: bool = False) -> np.ndarray:
+                  device="cuda", tf32: bool = False,
+                  root: str = ROOT) -> np.ndarray:
     """The reference's s16 output of one generated stream (its first
-    `units` temporal units for the Opus configuration; the program's
-    entropy output kept on the stream for a second call)."""
-    from reference import iamf as ref
-
-    if cfg["content"]["kind"] == "opus_loop":
-        key = ("entropy", units)
-        if key not in stream.cache:
-            stream.cache[key] = entropy.opus_entropy(stream.data, units)
-        ent, info = stream.cache[key]
-        return ref.opus_stream(ent, info["lead"], 0, cfg, device, tf32)
-    if cfg.get("binaural"):
-        return ref.binaural_stream(stream.source, cfg, device, tf32)
-    raise ValueError("no reference for this configuration")
-
-
-def entropy_gap() -> float:
-    """The program's entropy output on the Opus sample against the frozen
-    copy: the largest spectrum gap as a share of its frame and lane's
-    peak; 1.0 where a flag, period or gain differs."""
-    z = np.load(FROZEN)
-    with open(os.path.join(ROOT, "benchport", "data",
-                           "sample_opus_714.iamf"), "rb") as f:
-        ent, _ = entropy.opus_entropy(f.read())
-    for k in entropy.KEYS:
-        if ent[k].shape != z[k].shape or not np.array_equal(ent[k], z[k]):
-            return 1.0
-    peak = np.maximum(np.abs(z["freq"]).max(axis=2, keepdims=True), 1e-30)
-    return float((np.abs(ent["freq"] - z["freq"]) / peak).max())
+    `units` temporal units where the check asks for fewer than all)."""
+    return reference(cfg, root).pcm(cfg, stream, units, device, tf32)
 
 
 def sample_streams(win, traffic: dict, seed: int) -> list:
@@ -112,29 +86,32 @@ def sample_streams(win, traffic: dict, seed: int) -> list:
     return [longest] + [int(i) for i in rest[:k - 1]]
 
 
-def fleet_numbers(cfg, traffic, win, seed, device, tf32=False) -> dict:
+def fleet_numbers(cfg, traffic, win, seed, device, tf32=False,
+                  root=ROOT) -> dict:
     gaps = []
     for i in sample_streams(win, traffic, seed):
         got = win.outputs[i]
         if got is None:
             return dict(BROKEN, samples=0)
         want = reference_pcm(cfg, win.fleet_streams[i], device=device,
-                             tf32=tf32)
+                             tf32=tf32, root=root)
         gaps.append(_gaps(got[DELAY:], want, len(want) - DELAY))
     return _numbers(gaps)
 
 
-def sharded_numbers(cfg, traffic, win, seed, device, tf32=False) -> dict:
+def sharded_numbers(cfg, traffic, win, seed, device, tf32=False,
+                    root=ROOT) -> dict:
     """The first request's PCM (decode_all(): the stream's samples)."""
     got = win.outputs[0]
     if got is None:
         return dict(BROKEN, samples=0)
     want = reference_pcm(cfg, win.fleet_streams[0], device=device,
-                         tf32=tf32)
+                         tf32=tf32, root=root)
     return _numbers([_gaps(got, want, len(want))])
 
 
-def serial_numbers(cfg, traffic, win, seed, device, tf32=False) -> dict:
+def serial_numbers(cfg, traffic, win, seed, device, tf32=False,
+                   root=ROOT) -> dict:
     """Every sample of the kept calls (win.units: the warm-up's and the
     window's first drivers.CHECK_CALLS) against the reference's decode of
     those units and one more, parsed from the stream's start that far."""
@@ -143,20 +120,31 @@ def serial_numbers(cfg, traffic, win, seed, device, tf32=False) -> dict:
         return dict(BROKEN, samples=0)
     # the calls' output covers their units but the limiter's look-ahead;
     # one unit more covers the whole
-    want = reference_pcm(cfg, win.fleet_streams[0], win.units + 1,
-                         device=device, tf32=tf32)
-    return _numbers([_gaps(got, want, len(want) - 960 - DELAY)])
+    stream = win.fleet_streams[0]
+    want = reference_pcm(cfg, stream, win.units + 1, device=device,
+                         tf32=tf32, root=root)
+    return _numbers([_gaps(got, want, len(want) - stream.frame - DELAY)])
+
+
+def output_numbers(cfg: dict, traffic: dict, win, seed: int,
+                   device: str = "cuda", tf32: bool = False,
+                   root: str = ROOT) -> dict:
+    """The numbers of the window's outputs against the reference (and the
+    samples compared); the reference's products run on `device`."""
+    fn = {"fleet": fleet_numbers, "sharded": sharded_numbers,
+          "serial": serial_numbers}[traffic["mode"]]
+    return fn(cfg, traffic, win, seed, device, tf32, root)
 
 
 def numbers(cfg: dict, traffic: dict, win, seed: int, device: str = "cuda",
-            tf32: bool = False) -> dict:
-    """The compared numbers of a run (and the samples compared); the
-    reference's products run on `device`."""
-    fn = {"fleet": fleet_numbers, "sharded": sharded_numbers,
-          "serial": serial_numbers}[traffic["mode"]]
-    out = fn(cfg, traffic, win, seed, device, tf32)
-    if cfg["content"]["kind"] == "opus_loop" and not tf32:
-        out["entropy_gap"] = entropy_gap()
+            tf32: bool = False, root: str = ROOT) -> dict:
+    """The compared numbers of a run: output_numbers and the reference's
+    own ``numbers``, where it has them."""
+    out = output_numbers(cfg, traffic, win, seed, device, tf32, root)
+    ref = reference(cfg, root)
+    if hasattr(ref, "numbers"):
+        stage = getattr(content.kind(cfg, root), "stage", None)
+        out.update(ref.numbers(cfg, stage, tf32))
     return out
 
 

@@ -225,7 +225,7 @@ class Serial:
             raise RuntimeError("the serial stream ended inside the window: "
                                "give the traffic more units")
         win.seconds = t1 - start
-        win.audio_s = win.attempted * 960 / 48000.0
+        win.audio_s = win.attempted * self.stream.frame / self.stream.rate
         win.outputs = np.concatenate(chunks) if chunks else None
         # the units whose PCM the outputs hold: the warm-up's and the
         # window's first CHECK_CALLS

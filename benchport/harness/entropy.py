@@ -6,7 +6,9 @@ decoder's work). It takes that stage's output from the program: a fresh
 ``iamf_tpu_torch.codecs.opus.decoder.OpusDecoder`` of the stream's codec
 configuration, run through ``decode_spectrum_batch``, the export the
 batched decoders feed their synthesis from. The stage itself is held to a
-frozen copy of its output on the Opus sample (``check.entropy_gap``).
+frozen copy of its output on the Opus sample
+(``reference/opus_celt.entropy_gap``, which the content kind
+``opus_loop`` hands this stage as its ``stage``).
 """
 
 from __future__ import annotations

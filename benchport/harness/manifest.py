@@ -10,6 +10,10 @@ configuration and traffic files, and the readers of its metrics.
   time a roofline share reads are the names, one a line, in the files
   under its ``kernels/`` (a new implementation of the function adds a
   file there).
+- A content kind (a configuration's ``content.kind``) is
+  ``benchport/content/<kind>.py``, and a configuration's plain reference
+  (its ``reference``) is ``benchport/reference/<name>.py``: what each
+  defines is in harness/content.py and reference/__init__.py.
 A cell reports an end-to-end metric where the metric lists the cell under
 ``workloads``, or lists none; a per-layer metric where it lists the cell,
 or lists none and the cell reports the end-to-end metric it moves.
@@ -17,6 +21,7 @@ or lists none and the cell reports the end-to-end metric it moves.
 
 from __future__ import annotations
 
+import functools
 import glob
 import importlib.util
 import json
@@ -30,6 +35,30 @@ HERE = os.path.join(ROOT, "benchport")
 def load_json(path: str) -> dict:
     with open(path) as f:
         return json.load(f)
+
+
+def path(sub: str, name: str, root: str = ROOT) -> str:
+    """``benchport/<sub>/<name>.py`` under `root`; a missing file stops
+    the run, naming the path looked for."""
+    p = os.path.join(root, "benchport", sub, f"{name}.py")
+    if not os.path.isfile(p):
+        raise SystemExit(f"benchport: no {sub} {name!r}: {p} is not there")
+    return p
+
+
+def _exec(name: str, p: str):
+    spec = importlib.util.spec_from_file_location(name, p)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@functools.lru_cache(maxsize=None)
+def load(sub: str, name: str, root: str = ROOT):
+    """The module at path(sub, name, root), as ``<sub>.<name>``, so that
+    its relative imports find the package <sub> on the path; run once a
+    process for each (sub, name, root)."""
+    return _exec(f"{sub}.{name}", path(sub, name, root))
 
 
 class Cell:
@@ -62,14 +91,11 @@ class Reader:
 
     def __init__(self, name: str, root: str = ROOT):
         d = os.path.join(root, "benchport", "metrics", name)
-        spec = importlib.util.spec_from_file_location(
-            f"benchport_metric_{name.replace('.', '_')}",
-            os.path.join(d, "read.py"))
-        self.module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(self.module)
+        self.module = _exec(f"benchport_metric_{name.replace('.', '_')}",
+                            os.path.join(d, "read.py"))
         self.symbols = []
-        for path in sorted(glob.glob(os.path.join(d, "kernels", "*.txt"))):
-            with open(path) as f:
+        for txt in sorted(glob.glob(os.path.join(d, "kernels", "*.txt"))):
+            with open(txt) as f:
                 self.symbols += [s.strip() for s in f if s.strip()]
 
     def read(self, run):

@@ -16,6 +16,6 @@ def read(run):
         return None
     cfg = run.cfg
     out = 2 if cfg["binaural"] else len(cfg["output_channels"])
-    bound = sum(roofline.k3_bound(s.units * 960, out)
+    bound = sum(roofline.k3_bound(s.units * s.frame, out)
                 for s in run.win.streams_done)
     return 100.0 * bound / t

@@ -15,7 +15,7 @@ def read(run):
     if t <= 0:
         return None
     cfg = run.cfg
-    bound = sum(roofline.k8_bound(s.units * 960, cfg["channels"],
+    bound = sum(roofline.k8_bound(s.units * s.frame, cfg["channels"],
                                   cfg["hrir"]["taps"])
                 for s in run.win.streams_done)
     return 100.0 * bound / t

@@ -25,11 +25,11 @@ import functools
 import numpy as np
 from scipy.ndimage import maximum_filter1d
 
+from . import DELAY, RATE
+
 THRESHOLD_DB = -1.0
 ATTACK_S = 0.001
 RELEASE_S = 0.200
-DELAY = 240
-RATE = 48000
 
 f32 = np.float32
 

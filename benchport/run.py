@@ -100,11 +100,15 @@ def main(argv=None, device: str = "cuda", root: str = ROOT) -> int:
 
     from harness import check, content, drivers, trace
 
+    # the content kind and the reference are found by name: a missing file
+    # stops the run here, before any set-up work
+    manifest.path("content", cell.config["content"]["kind"], root)
+    manifest.path("reference", cell.config["reference"], root)
     if device == "cuda":
         from iamf_tpu_torch.kernels import build
         build.load()
     streams = content.make(cell.config, cell.traffic, args.seed,
-                           device if device == "cuda" else None)
+                           device if device == "cuda" else None, root)
     driver = drivers.MODES[cell.traffic["mode"]](
         cell.config, cell.traffic, streams, args.seed, device)
     driver.warm()
@@ -139,7 +143,8 @@ def main(argv=None, device: str = "cuda", root: str = ROOT) -> int:
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
 
-    nums = check.numbers(cell.config, cell.traffic, win, args.seed, device)
+    nums = check.numbers(cell.config, cell.traffic, win, args.seed, device,
+                         root=root)
     ok, shown = check.verdict(cell.config, nums)
     correct = ok and win.failed == 0
 

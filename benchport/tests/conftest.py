@@ -43,13 +43,42 @@ def _add_opus_fleet(dst: str) -> None:
     json.dump(bench, open(path, "w"))
 
 
+# the four-card long stream, out of BENCHMARK.json until its spread meets
+# the bound and a check can afford its sets: the harness keeps its path
+# (its traffic and readers), and the tiny root adds it back by data alone
+SHARDED = "opus714_long_sharded4"
+
+
+def _add_sharded(dst: str) -> None:
+    path = os.path.join(dst, "BENCHMARK.json")
+    bench = json.load(open(path))
+    bench["workloads"].append({"name": SHARDED, "config": "opus714_ssJ",
+                               "traffic": "long_sharded4", "chips": 4,
+                               "why": "one long stream over 4 cards, tiny"})
+    e2e = {"name": "stream_realtime_x", "unit": "x", "better": "higher",
+           "bound": 0.25, "source": "host_clock", "workloads": [SHARDED]}
+    bench["end_to_end"].insert(-1, e2e)
+    for name, source, layer in [
+            ("construct_ms_per_s.sharded", "host_clock", "front end"),
+            ("device_idle_pct.sharded", "device_trace", "device"),
+            ("inputs_ms_per_s.sharded", "host_clock", "mesh"),
+            ("mesh_ms_per_s.sharded", "host_clock", "mesh"),
+            ("idle_inputs_pct.sharded", "device_trace", "device")]:
+        bench["per_layer"].append({
+            "name": name, "unit": "%" if "pct" in name else "ms/s",
+            "better": "lower", "source": source, "layer": layer,
+            "moves": "stream_realtime_x", "workloads": [SHARDED]})
+    json.dump(bench, open(path, "w"))
+
+
 def make_root(dst: str) -> str:
     """A copy of BENCHMARK.json and the benchmark's files under `dst`, its
     cells cut to CPU size: fleets of two streams of 16-24 units, batches
     of 8 frames, a serial stream of 400 units, a sharded one of 40; and
     a tiny Opus fleet cell."""
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
-    for d in ("configs", "traffic", "metrics", "data"):
+    for d in ("configs", "traffic", "metrics", "data", "content",
+              "reference"):
         shutil.copytree(os.path.join(BENCH, d),
                         os.path.join(dst, "benchport", d))
     for name in os.listdir(os.path.join(dst, "benchport", "configs")):
@@ -68,6 +97,7 @@ def make_root(dst: str) -> str:
             t.update(units=40)
         json.dump(t, open(path, "w"))
     _add_opus_fleet(dst)
+    _add_sharded(dst)
     return dst
 
 

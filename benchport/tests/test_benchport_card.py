@@ -12,8 +12,7 @@ from conftest import ROOT
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", ["binaural714_loud_fleet8",
-                                      "opus714_ssJ_serial",
-                                      "opus714_long_sharded4"])
+                                      "opus714_ssJ_serial"])
 @pytest.mark.parametrize("trace", [0, 1])
 def test_cell_on_card(capsys, workload, trace):
     import torch

@@ -15,9 +15,9 @@ def test_finds_cell_config_traffic_and_metrics():
                                                       "setup_s"]
     names = {m["name"] for m in cell.per_layer()}
     assert "k8_roofline_pct.fleet" in names
-    assert "frame_p50_ms.serial" not in names
+    assert "frame_p95_ms.serial" not in names
     serial = manifest.Cell("opus714_ssJ_serial")
-    assert {m["name"] for m in serial.end_to_end()} == {"frame_p95_ms",
+    assert {m["name"] for m in serial.end_to_end()} == {"frame_p50_ms",
                                                          "setup_s"}
     reader = manifest.Reader("k3_roofline_pct.fleet")
     assert "::gain_walk" in reader.symbols

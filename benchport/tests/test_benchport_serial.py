@@ -45,7 +45,7 @@ class StubDecoder:
 
 
 def _stub_driver(n_bytes=1 << 22):
-    stream = content.Stream(bytes(n_bytes), n_bytes, n_bytes * 0.02)
+    stream = content.Stream(bytes(n_bytes), n_bytes, 960, 48000)
     d = drivers.Serial(_cfg(), {"mode": "serial"}, [stream], 1,
                        device="cpu")
     d.make = StubDecoder
@@ -93,7 +93,8 @@ def test_check_asks_reference_for_kept_units(monkeypatch, seconds, cap):
     win = _stub_driver().run(seconds)
     asked = []
 
-    def reference_pcm(cfg, stream, units=None, device="cuda", tf32=False):
+    def reference_pcm(cfg, stream, units=None, device="cuda", tf32=False,
+                      root=None):
         asked.append(units)
         return np.zeros((units * 960, 2), np.int16)
 
@@ -128,7 +129,8 @@ def test_serial_numbers_equal_todays_on_a_short_window(monkeypatch):
     got = check.serial_numbers(cfg, traffic, win, seed, "cpu")
 
     monkeypatch.setattr(entropy, "parse", _whole_parse)
-    whole = content.Stream(stream.data, stream.units, stream.seconds)
+    whole = content.Stream(stream.data, stream.units, stream.frame,
+                           stream.rate, stage=stream.program_stage)
     want = check.reference_pcm(cfg, whole,
                                drivers.WARM_UNITS + win.attempted + 1,
                                device="cpu")

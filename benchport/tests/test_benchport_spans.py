@@ -275,7 +275,7 @@ def test_readers_without_the_recorder(tiny_root, capsys, monkeypatch):
     res, _ = _run(tiny_root, "opus714_ssJ_serial", 1, capsys)
     assert res["correct"] is True
     assert not set(NEW["opus714_ssJ_serial"]) & set(res["metrics"])
-    assert "frame_p50_ms.serial" in res["metrics"]
+    assert "frame_p95_ms.serial" in res["metrics"]
 
 
 def test_fit_needs_pairs():
